@@ -88,7 +88,7 @@ def main():
             f"Depends: python3 (>= 3.10), python3-numpy\n"
             f"Section: utils\n"
             f"Priority: optional\n"
-            f"Description: TPU-native Unicode string extractor\n"
+            f"Description: data-parallel Unicode string extractor\n"
             f" Finds multi-byte encoded strings in binary data\n"
             f" (stringsext-compatible CLI; JAX/Pallas device kernels\n"
             f" optional at runtime).\n"

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Canonical dense-benchmark corpus generator (docs/BENCHMARKS.md).
+"""Canonical dense-benchmark corpus generator.
 
 Reproducible recipe for the "text-dense mix" end-to-end benchmark: a
 forensic-style image where EVERY 512-byte block is hot (so device hot
@@ -15,7 +15,7 @@ The composition mirrors what embedded documents + wide-string tables +
 machine code look like in disk images; "dense" here means the finding
 density stays high everywhere (output volume is comparable to input
 volume), which is the worst case for the emit path - sparse images are
-covered by the hot-map skip machinery instead (see BENCHMARKS.md).
+covered by the hot-map skip machinery instead.
 """
 import sys
 

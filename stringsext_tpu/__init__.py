@@ -1,12 +1,12 @@
-"""stringsext-tpu: a TPU-native string-extraction framework.
+"""stringsext-tpu: a data-parallel string-extraction framework.
 
 A ground-up reimplementation of the capabilities of `stringsext`
-(reference: /root/reference, a Rust CLI) designed TPU-first:
+(reference: /root/reference, a Rust CLI) designed for an accelerator:
 
 - The hot byte-scanning path (validity DFA, filter masks, run detection)
-  runs as data-parallel JAX/XLA/Pallas kernels over large device-resident
-  byte buffers (`stringsext_tpu.ops`).
-- Multi-chip scaling shards the byte stream over a `jax.sharding.Mesh`
+  runs as data-parallel JAX/XLA passes over large device-resident byte
+  buffers (`stringsext_tpu.ops`).
+- Multi-device scaling shards the byte stream over a `jax.sharding.Mesh`
   with halo overlap (`stringsext_tpu.parallel`) instead of the
   reference's one-thread-per-encoding model.
 - A thin, exact "emission automaton" (`stringsext_tpu.engine`) replays the

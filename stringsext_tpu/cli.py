@@ -64,23 +64,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("inputs", nargs="*", metavar="FILE",
                    help="paths to files to scan (or `-` for stdin)")
     ext = p.add_argument_group(
-        "tpu/runtime extensions",
+        "runtime extensions",
         "flags without a stringsext analog; the STRINGSEXT_* environment "
         "variable of the same name overrides each flag when set")
     ext.add_argument("--engine", dest="engine",
-                     choices=["auto", "tpu", "python"],
+                     choices=["auto", "device", "tpu", "python"],
                      help="scan engine: auto (native C++; promotes itself "
-                          "to tpu when the cached accelerator-link probe "
-                          "finds a co-located device), tpu (device run-"
-                          "table feed + native emitter), python "
-                          "(pure-python oracle); default auto")
+                          "to device when the cached accelerator-link "
+                          "probe finds a co-located accelerator), device "
+                          "(device run-table feed + native emitter; tpu is "
+                          "its old name), python (pure-python oracle); "
+                          "default auto")
     ext.add_argument("--checkpoint", dest="checkpoint", metavar="FILE",
                      help="checkpoint scan state to FILE after every chunk "
                           "and resume from it if it exists (single input "
                           "or stdin; removed on successful completion)")
     ext.add_argument("--hot-group", dest="hot_group", metavar="NUM",
-                     help="missions per fused device hot-map launch "
-                          "(engine=tpu; default 24)")
+                     help="at most NUM missions per fused device hot-map "
+                          "launch (engine=device; default 24)")
     ext.add_argument("--mesh", dest="mesh", action="store_true",
                      help="force mesh-sharded device passes (on by default "
                           "when >1 accelerator device is attached)")
@@ -154,7 +155,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(version_line())
         return 0
     # Heavy imports (numpy via mission/encodings) stay off the -V path;
-    # jax is imported by NO scan path (only engine=tpu device passes).
+    # jax is imported by NO scan path (only engine=device passes).
     from .help import help_and_maybe_exit
     from .mission import MissionError
 
@@ -165,15 +166,16 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         from .run import run
 
-        # Engine selection: "auto" (native C++), "tpu" (device kernels
-        # pre-filter + native emitter), "python" (reference impl).
-        # The env var overrides the --engine flag (scripts/CI may pin
-        # an engine around arbitrary invocations).
+        # Engine selection: "auto" (native C++), "device" (device
+        # passes pre-filter + native emitter; "tpu" is its old name),
+        # "python" (reference impl). The env var overrides the --engine
+        # flag (scripts/CI may pin an engine around arbitrary
+        # invocations).
         engine = os.environ.get("STRINGSEXT_ENGINE") or args.engine or "auto"
-        if engine not in ("auto", "tpu", "python"):
+        if engine not in ("auto", "device", "tpu", "python"):
             print(
                 f"Error: unknown STRINGSEXT_ENGINE `{engine}` "
-                "(expected auto|tpu|python).",
+                "(expected auto|device|python).",
                 file=sys.stderr,
             )
             return 1

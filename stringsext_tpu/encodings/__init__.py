@@ -5,7 +5,7 @@ This package replaces the reference's external native dependency
 at /root/reference/src/mission.rs:681 and
 `new_decoder_without_bom_handling` at /root/reference/src/scanner.rs:76).
 
-Instead of a streaming state-machine decoder, the TPU framework decodes
+Instead of a streaming state-machine decoder, this framework decodes
 via data-parallel classification passes (see `stringsext_tpu.ops` and
 `stringsext_tpu.engine.events`); this module provides the static data
 those passes need:

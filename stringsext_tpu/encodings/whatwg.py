@@ -45,7 +45,11 @@ _DATA_PATH = os.path.join(os.path.dirname(__file__), "whatwg_data.npz")
 
 @functools.lru_cache(maxsize=None)
 def _data():
-    return np.load(_DATA_PATH)
+    """Every table, read eagerly: the per-mission scan threads look
+    tables up concurrently, and an NpzFile's lazy member reads share
+    one file handle (concurrent reads corrupt the zlib stream)."""
+    with np.load(_DATA_PATH) as z:
+        return {k: z[k] for k in z.files}
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,7 +19,7 @@ tags, `+` continuation tags), so this module replays them exactly:
   (finding_collection.rs:155-207).
 
 The heavy per-byte work (validity, classification) happened earlier in
-the data-parallel event generation (engine/events.py or the TPU kernels
+the data-parallel event generation (engine/events.py or the device passes
 in ops/); this automaton touches only events, which are sparse for
 binary inputs.
 """

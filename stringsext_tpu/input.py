@@ -12,9 +12,9 @@ id (input.rs:134-158) - observable only as a no-op, but we reproduce the
 slice sequence exactly because slice boundaries are observable (they
 decide window grids, precision tags and leftovers).
 
-The TPU build separates *slicing* (this module: cheap bookkeeping that
+This build separates *slicing* (this module: cheap bookkeeping that
 drives the emission automaton) from *bulk reading* (whole-stream reads
-feeding device-sized chunks to the classification kernels).
+feeding device-sized chunks to the classification passes).
 """
 
 from __future__ import annotations

@@ -316,9 +316,9 @@ def _merge_workers(n_streams: int) -> int:
     STRINGSEXT_MERGE_WORKERS overrides; 1 disables slabbing. Default:
     the cores LEFT OVER after one scan thread per stream plus the
     reader - on a host where scans already saturate the cores, the
-    fused single-pass merge (no slab buffers, no extra copy) measures
-    faster, so slabbing must not steal their cycles (2-core host, dense
-    1 GiB: fused 364-392 MB/s vs slabbed 348-357)."""
+    fused single-pass merge (no slab buffers, no extra copy) measured
+    faster on a 2-core host, so slabbing must not steal their
+    cycles."""
     try:
         return max(1, int(os.environ.get("STRINGSEXT_MERGE_WORKERS", "")))
     except ValueError:
@@ -611,8 +611,8 @@ def native_scan(
 
     `hot_ranges`, when given, is (starts, ends): sorted, disjoint byte
     ranges containing every accepted char run (from the device scan
-    kernels). Windows outside them are provably finding-free and are
-    skipped whole - the TPU->host integration point.
+    passes). Windows outside them are provably finding-free and are
+    skipped whole - the device->host integration point.
     """
     from ..encodings import encoding_kind, full_byte_table
 

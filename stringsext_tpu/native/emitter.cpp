@@ -815,8 +815,8 @@ static void scan_mission(const Mission& m, const uint8_t* data, int64_t total,
     // without the sub-0x80 restriction); the payload is batch-
     // transcoded through a precomputed per-byte-value UTF-8 table
     // (1-3 bytes each). This is the dense accepted high-byte text
-    // shape (e.g. KOI8-R Cyrillic), where the generic walk measured
-    // ~29 MB/s. same_block must be off (mixed leads break runs);
+    // shape (e.g. KOI8-R Cyrillic), where the generic walk is slowest.
+    // same_block must be off (mixed leads break runs);
     // grep off and chars_min <= line_max as in the sibling lanes.
     const bool sbyte_fast = m.kind == 3 && m.grep_char < 0 &&
                             !m.same_block &&

@@ -9,8 +9,7 @@ in tests/test_device.py) and are what the finding-extraction kernels
 
 Shapes are static (callers pad chunks to bucket sizes; `n` is the
 traced real length) so each kernel compiles once per bucket. Layout:
-one lane element per input byte, 1-D; XLA tiles this onto the VPU
-(8x128). All ops are elementwise / small-shift / cummax - no gathers in
+one lane element per input byte, 1-D. All ops are elementwise / small-shift / cummax - no gathers in
 the UTF-8 path (cf. the shift-based DFA of Keiser/Lemire, PAPERS.md,
 which this generalizes).
 """
@@ -154,8 +153,7 @@ def utf16_lanes(b: jax.Array, big_endian: bool, n: jax.Array | None = None) -> L
     n = jnp.asarray(n, jnp.int32)
     nu_cap = cap // 2
     nu = n // 2  # complete units
-    # 1-D strided slices, NOT a (nu, 2) reshape: a minor dim of 2 would
-    # be lane-padded 2->128 on TPU (64x HBM blowup).
+    # 1-D strided slices, NOT a (nu, 2) reshape with a minor dim of 2.
     bi = b.astype(jnp.int32)
     b_even = jax.lax.slice(bi, (0,), (cap,), (2,))
     b_odd = jax.lax.slice(bi, (1,), (cap,), (2,))

@@ -83,16 +83,15 @@ def _gather2(table: jax.Array, b: jax.Array, t: jax.Array) -> jax.Array:
     return jnp.take(table.reshape(-1), b * 256 + t)
 
 
-_ORBIT_BLOCK = 512  # blocked-resolve lane width (one VPU-friendly row)
+_ORBIT_BLOCK = 512  # blocked-resolve lane width
 _ORBIT_DEAD = 4  # transfer state: the chain ended (pending/stream end)
 _ORBIT_FAR = 1 << 20  # local "chain gone" sentinel (>> block + max step)
 
 
 def _orbit_mask_blocked(step: jax.Array, n: jax.Array, start) -> jax.Array:
     """Blocked event-chain resolution - the gather-free rewrite of the
-    pointer-doubling orbit (which cost ~24 rounds of full-length
-    gathers+scatters and measured ~1.4 MB/s on a 16 MiB chunk on the
-    v5e). Same mesh algebra applied WITHIN the chunk:
+    pointer-doubling orbit (which costs ~24 rounds of full-length
+    gathers+scatters). Same mesh algebra applied WITHIN the chunk:
 
       1. per 512-byte block, a `lax.scan` over the 512 offsets carries
          the chain cursor for every block in parallel - pure
@@ -258,8 +257,7 @@ def _orbit_masks_block0(step: jax.Array, n, starts: jax.Array) -> jax.Array:
 def _orbit_mask(step: jax.Array, n: jax.Array, start=0) -> jax.Array:
     """bool[cap]: position is reachable from `start` under
     i -> i+step[i] (i.e. a true event start). Large chunks use the
-    blocked scan+transfer resolution (_orbit_mask_blocked, gather-free
-    - the doubling form measured ~1.4 MB/s at 16 MiB on the v5e);
+    blocked scan+transfer resolution (_orbit_mask_blocked, gather-free);
     small ones keep the original pointer doubling: after round k the
     mark set is closed under 2^k applications, so ceil(log2(cap))
     rounds reach the fixpoint; positions >= n funnel into a dump slot.
@@ -338,7 +336,7 @@ def _classify_two_byte(b, have1, kind: str) -> _C:
     pcp = _gather2(pair_cp, b, t)
     # Multi-codepoint pairs: only Big5 has any (4 double-cp pointers) -
     # a handful of equality tests beats a second 65536-entry gather
-    # (arbitrary gathers are the dominant cost of this kernel on TPU).
+    # (arbitrary gathers are the dominant cost of this pass).
     multi_keys = sorted(int(k) for k in np.flatnonzero(
         _multi_pair_np(kind).reshape(-1)))
     if multi_keys:
@@ -453,8 +451,8 @@ def _classify_gb18030(b, have1, have2, have3, n) -> _C:
     quad_ok = f_all & p_ok
     # Ranges mapping as a TELESCOPING compare-sum instead of
     # searchsorted + two table takes (log-rounds of 16M-element
-    # gathers dominate on TPU; ~200 elementwise compare-mul-adds are
-    # VPU-cheap): with d[j] = rc[j] - rp[j], the mapped codepoint is
+    # gathers; ~200 elementwise compare-mul-adds are cheap): with
+    # d[j] = rc[j] - rp[j], the mapped codepoint is
     # cp = p + d[k] = p + d[0] + sum_{j>=1} [rp[j] <= p] * (d[j]-d[j-1])
     # (rp is sorted, so the indicator telescopes to d[k]).
     d_np = rc_np - rp_np

@@ -1,6 +1,6 @@
 """Exact decode-event generation using the device classification lanes.
 
-Bridges the TPU kernels (ops/classify.py, ops/classify_cjk.py) to the
+Bridges the device passes (ops/classify.py, ops/classify_cjk.py) to the
 host emission automaton: lanes are computed on device, transferred, and
 compacted to the same `Events` struct the numpy generators produce -
 and, for the run-table feed, to exact accepted-char run tables plus the
@@ -306,10 +306,20 @@ def runtable_feed(data: np.ndarray, mission, device: bool = True,
     if not device:
         return _feed_from_host_events(data, mission, kind, with_extras)
 
+    from ..utils import profiling
+
+    with profiling.scope("device.dispatch", n):
+        return _runtable_feed_device(data, mission, kind, with_extras)
+
+
+def _runtable_feed_device(data, mission, kind, with_extras):
+    """The device half of runtable_feed (same contract)."""
+    import jax
     import jax.numpy as jnp
 
     from .runs import accept_mask, filter_words
 
+    n = len(data)
     cap = _bucket(n)
     padded = np.zeros(cap, dtype=np.uint8)
     padded[:n] = data
@@ -336,8 +346,6 @@ def runtable_feed(data: np.ndarray, mission, device: bool = True,
     # Effective report = running max over event reports (the emitter's
     # clock; events_cjk.generate's maximum.accumulate). A char whose
     # effective report exceeds its own last byte is excluded.
-    import jax
-
     idx = jnp.arange(cap, dtype=jnp.int32)
     evt = lanes.start & ~lanes.pending
     rep = jnp.where(evt, idx + lanes.report_off, -1)

@@ -1,6 +1,6 @@
 """Mission filter masks and accepted-run compaction on device.
 
-This is the TPU analog of the reference's hot path (SURVEY.md section 7
+This is the device analog of the reference's hot path (SURVEY.md section 7
 steps 2-4): the per-char filter walk of SplitStr (helper.rs:237-332)
 becomes per-byte boolean lanes + a segmented-run compaction, all fused
 by XLA on device. The output is a fixed-capacity run table
@@ -27,6 +27,14 @@ import numpy as np
 
 from ..mission import Mission
 from .classify import Lanes
+from .swar import (
+    _Panel,
+    _lsr,
+    swar_flags,
+    swar_sbyte_panel,
+    swar_utf8_panel,
+    swar_utf16_panel,
+)
 
 
 class RunTable(NamedTuple):
@@ -60,7 +68,7 @@ def accept_mask(lanes: Lanes, af_words: jax.Array, ubf_words: jax.Array) -> jax.
     the 64-bit UBF mask as uint32[2].
 
     The bit lookup is branch-free: select the mask word with arithmetic
-    (no gather), then test the bit - VPU-friendly.
+    (no gather), then test the bit.
     """
     cp = lanes.cp
     is_char = lanes.valid & lanes.start & (cp >= 0)
@@ -92,96 +100,8 @@ def filter_words(m: Mission):
     return af_words, ubf_words
 
 
-@functools.partial(jax.jit, static_argnames=("capacity", "field_shift"))
-def extract_runs_packed(
-    packed: jax.Array, capacity: int = 4096, field_shift: int = 0
-) -> RunTable:
-    """Run compaction from the Pallas kernels' packed lanes
-    (ops/pallas_scan.py bit layout): accept bit 0, length bits 1-3,
-    grep bit 4. `field_shift` selects a mission field from the fused
-    flagship kernel (0 / 8 / 16). Same output as extract_runs."""
-    p = (packed.reshape(-1).astype(jnp.int32) >> field_shift) & 0x7F
-    accept = (p & 1) != 0
-    length = (p >> 1) & 7
-    gflag = (p & 16) != 0
-    return _compact_runs(accept, length, gflag, capacity)
-
-
-_M01 = 0x01010101
-
-
-def _swar_flags(w, w_prev, w_next):
-    """Boundary flags from packed-lane field words (implementation
-    shared with the fused counts kernel - see pallas_swar.swar_flags)."""
-    from .pallas_swar import swar_flags
-
-    return swar_flags(w, w_prev, w_next)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity",))
-def extract_runs_packed4(words: jax.Array, capacity: int = 4096) -> RunTable:
-    """Run compaction from SWAR word-packed lanes (ops/pallas_swar.py):
-    one int32 word per 4 stream bytes, an 8-bit field per byte slot
-    (UTF-16 words populate slots 0 and 2 only, which is exactly the
-    per-byte view of unit starts).
-
-    Nothing full-length is materialized: stage 1 derives boundary flags
-    inline and reduces per-block counts (a fused streaming pass over the
-    packed words); stage 3 gathers only the capacity-sized boundary
-    slabs (plus one context word each side) and re-derives the flags
-    locally."""
-    from .pallas_swar import _lsr as lsr
-
-    w = words.reshape(-1)
-
-    bw = _BLOCK // 4  # words per block
-    nw0 = w.shape[0]
-    if nw0 % bw:
-        w = jnp.concatenate([w, jnp.zeros(bw - nw0 % bw, w.dtype)])
-    nw = w.shape[0]
-    n = nw * 4
-    nb = nw // bw
-
-    w_prev = jnp.concatenate([jnp.zeros(1, w.dtype), w[:-1]])
-    w_next = jnp.concatenate([w[1:], jnp.zeros(1, w.dtype)])
-    acc, lf, gf, run_start, run_end = _swar_flags(w, w_prev, w_next)
-
-    def word_bytesum(x):  # sum of the 4 byte slots (values <= 7)
-        return lsr(x * _M01, 24)
-
-    # Stage 1: three counts per reduce via 10-bit fields (block <= 512).
-    enc = (
-        word_bytesum(run_start)
-        + (word_bytesum(run_end) << 10)
-        + (word_bytesum(acc) << 20)
-    )
-    enc_blk = jnp.sum(enc.reshape(nb, bw), axis=1)
-    grep_blk = jnp.sum(word_bytesum(gf).reshape(nb, bw), axis=1)
-
-    expand = _expand_bytes
-
-    wm = w.reshape(nb, bw)
-    w_flat = w
-
-    def slab_flags(b):
-        """Gather block b's words + 1 context word each side and derive
-        the per-byte flag slabs (K, _BLOCK)."""
-        base = b * bw
-        slabW = wm[b]  # (K, bw)
-        prevW = jnp.where(base > 0, w_flat[jnp.maximum(base - 1, 0)], 0)
-        nextW = jnp.where(base + bw < nw, w_flat[jnp.minimum(base + bw, nw - 1)], 0)
-        pW = jnp.concatenate([prevW[:, None], slabW[:, :-1]], axis=1)
-        nW = jnp.concatenate([slabW[:, 1:], nextW[:, None]], axis=1)
-        a, l, g, rs, re = _swar_flags(slabW, pW, nW)
-        return tuple(expand(x) for x in (a, l, g, rs, re))
-
-    return _runs_from_block_counts(slab_flags, enc_blk, grep_blk, capacity, n)
-
-
 def _expand_bytes(slab_words):
     """(K, m) packed words -> (K, 4m) per-byte fields (little-endian)."""
-    from .pallas_swar import _lsr
-
     m = slab_words.shape[1]
     parts = [_lsr(slab_words, 8 * j) & 0xFF for j in range(4)]
     return jnp.stack(parts, axis=-1).reshape(slab_words.shape[0], m * 4)
@@ -208,30 +128,21 @@ def extract_runs_swar_blocks(
     capacity: int = 4096,
     xor_word: jax.Array | None = None,  # int32: XOR gathered slabs
 ) -> RunTable:
-    """Run compaction stages 2-3 from the fused counts kernel
-    (pallas_swar.flagship_swar_counts): stage 1 (boundary flags +
-    per-512-byte-block counts) already ran inside the Pallas pass, so
-    no full-size lane array ever exists. This locates each of the
+    """Run compaction stages 2-3 from the fused counts pass
+    (swar.swar_counts): stage 1 (boundary flags + per-512-byte-block
+    counts) already ran inside that pass, so no full-size lane array
+    ever exists. This locates each of the
     <=capacity runs with tiny block cumsums and re-derives the boundary
     slabs from the RAW input words - a capacity-sized gather plus the
     same SWAR field math on (K, 132)-word slabs.
 
     Interval/grep parameters are the per-mission pieces of
-    pallas_swar.swar_params (static)."""
-    from .pallas_swar import (
-        HALO_ROWS,
-        _SlabPanel,
-        swar_sbyte_panel,
-        swar_utf8_panel,
-        swar_utf16_panel,
-    )
-
+    swar.swar_params (static)."""
     w = words.reshape(-1)
     nw = w.shape[0]
     nb = enc_blk.shape[0]
     bw = _BLOCK // 4
     n = nb * _BLOCK
-    halo_w = HALO_ROWS * 128
 
     expand = _expand_bytes
 
@@ -244,9 +155,8 @@ def extract_runs_swar_blocks(
         context and flags +-1 word of field context, so with a 2-word
         margin the interior block columns are exact.
 
-        The block body is one contiguous ROW gather (K x 512 B rows -
-        cheap on TPU); only the 4 margin words use K-element point
-        gathers. An arbitrary (K, 132) index gather is ~20x slower."""
+        The block body is one contiguous ROW gather (K x 512 B rows);
+        only the 4 margin words use K-element point gathers."""
         base = b * bw
         body = wm[b]  # (K, bw) contiguous rows
         if xor_word is not None:
@@ -255,10 +165,9 @@ def extract_runs_swar_blocks(
         def margin(off):
             idx = base + off
             # Out-of-stream margins are ZERO words, matching the
-            # kernel's stream-edge semantics (edge halos zeroed via the
-            # grid position AFTER any in-kernel XOR; see
-            # flagship_swar_counts docstring), so slab fields equal
-            # kernel fields at the first/last blocks.
+            # counts pass's stream-edge semantics (zero context AFTER
+            # any XOR; see the swar_counts docstring), so slab fields
+            # equal counts-pass fields at the first/last blocks.
             word = w[jnp.clip(idx, 0, nw - 1)]
             if xor_word is not None:
                 word = word ^ xor_word
@@ -267,7 +176,7 @@ def extract_runs_swar_blocks(
         slabW = jnp.concatenate(
             [margin(-2), margin(-1), body, margin(bw), margin(bw + 1)], axis=1
         )
-        P = _SlabPanel(slabW)
+        P = _Panel(slabW)
         if kind == "utf8":
             F = swar_utf8_panel(P, af_iv, ubf_iv, grep)
         elif kind == "sbyte":
@@ -277,7 +186,7 @@ def extract_runs_swar_blocks(
         z = jnp.zeros_like(F[:, :1])
         Fp = jnp.concatenate([z, F[:, :-1]], axis=1)
         Fn = jnp.concatenate([F[:, 1:], z], axis=1)
-        a, l, g, rs, re = _swar_flags(F, Fp, Fn)
+        a, l, g, rs, re = swar_flags(F, Fp, Fn)
         return tuple(expand(x[:, 2 : 2 + bw]) for x in (a, l, g, rs, re))
 
     return _runs_from_block_counts(slab_flags, enc_blk, grep_blk, capacity, n)
@@ -292,25 +201,10 @@ def _runs_from_block_counts(slab_flags, enc_blk, grep_blk, capacity, n):
     flag slabs, and per-run aggregates come from prefix differences.
 
     All rank lookups are branchless compare-sums over 64-wide levels
-    (two levels up to 4096 blocks = 2 MiB, three beyond): a
-    binary-search searchsorted over the 10^4-10^5-element block cumsum
-    costs ~17 dependent gather rounds on TPU, while the hierarchical
-    form is a few wide vector ops. The items-before prefix is one
-    K-sized point gather blk_cum[b-1] (a (K, nsb) where+max pass here
-    cost ~0.1 ms/mission at 64 MiB).
-
-    Negative results (interleaved A/B on the chip, 3-mission 64 MiB
-    full pipeline, both reproducible - do not retry):
-      - stacking the four cumsums into one (4, nb) row-cumsum:
-        2.48 vs 2.40 ms/iter (the 2-D cumsum lowers worse than four
-        1-D scans);
-      - batching the two slab_flags calls into one (2K,) call via
-        jnp.concatenate([sb, eb]): 2.56 vs 2.40 ms/iter;
-      - replacing the four full-length (nb) cumsums with superblock-
-        granularity cumsums (single-pass row reduce + 64-wide cumsum)
-        plus (K, _SB) window cumsums of gathered raw counts in
-        rank_lookup/pref_at: 2.44 vs 2.40 ms/iter - XLA's 1-D scans
-        are cheaper than the extra window work."""
+    (two levels up to 4096 blocks = 2 MiB, three beyond) instead of a
+    binary-search searchsorted over the 10^4-10^5-element block cumsum,
+    which would be ~17 dependent gather rounds. The items-before prefix
+    is one K-sized point gather blk_cum[b-1]."""
     nb0 = enc_blk.shape[0]
     pad = (-nb0) % _SB
     if pad:
@@ -423,7 +317,7 @@ def extract_runs(
     filter (bytes inside a multi-byte char belong to their char; runs
     break at rejected chars, malformed sequences and gaps).
 
-    Deliberately scatter-free for the TPU: run adjacency is decided
+    Deliberately scatter-free: run adjacency is decided
     with <=4 static shifts (chars are 1-4 bytes), run boundaries are
     located with cumsum + a capacity-sized vectorized searchsorted, and
     per-run aggregates come from prefix-sum differences gathered at the
@@ -441,8 +335,7 @@ _BLOCK = 512  # hierarchical compaction block (bytes)
 def _compact_runs(accept, length, gflag, capacity: int) -> RunTable:
     """Hierarchical (two-level) run-boundary compaction.
 
-    Full-length cumsums dominate on TPU (~1 ms per pass at 16 MB), so
-    instead: (1) one fused elementwise pass derives the boundary flags
+    Full-length cumsums are the expensive part, so instead: (1) one fused elementwise pass derives the boundary flags
     and reduces per-512-byte-block counts (boundary+accept counts are
     bit-packed so one reduction covers three quantities); (2) tiny
     cumsums over block counts locate each of the <=capacity runs'

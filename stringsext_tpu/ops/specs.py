@@ -1,12 +1,12 @@
-"""Host-side static mission specs for the SWAR kernels - JAX-FREE.
+"""Host-side static mission specs for the SWAR pass - JAX-FREE.
 
 Filter decomposition into byte/codepoint intervals, the exact-count
-mission specs, the conservative CJK/ISO plausible-byte hot specs, and
-the scoped-VMEM launch planner. Pure numpy/host code consumed by paths
-that must never import jax - default probe segmentation, host hot
-maps, the distributed shard split (cli.py contract: host scan runs
-touch neither jax nor the device stack). `ops.pallas_swar` re-exports
-everything here for its device-side callers.
+mission specs and the conservative CJK/ISO plausible-byte hot specs.
+Pure numpy/host code consumed by paths that must never import jax -
+default probe segmentation, host hot maps, the distributed shard split
+(cli.py contract: host scan runs touch neither jax nor the device
+stack). `ops.swar` re-exports everything here for its device-side
+callers.
 """
 
 from __future__ import annotations
@@ -65,86 +65,6 @@ def utf16_cp_intervals(mission) -> tuple:
         else:
             out.append((lo, hi))
     return tuple(out)
-
-
-# --- Static scoped-VMEM grouping model (VERDICT r3 item 3) ----------
-#
-# A fused hot-only counts launch must fit the v5e's 16 MB scoped-VMEM
-# limit; round 3 discovered group viability reactively (compile-fail
-# -then-halve), which cost the all-41 sweep ~2 GB/s when the fallback
-# landed at 14/launch. The footprint is additive per spec to good
-# accuracy; weights and budget below were calibrated 2026-08-21 on the
-# attached v5e with compile-only bracket probes over the REAL all-41
-# spec set (scripts/calibrate_vmem.py; synthetic identical specs CSE
-# away and do NOT reproduce the pressure):
-#
-#   pass/fail brackets (cost units = sum over sbyte specs of 2+n_iv):
-#     sbyte-only:            OK <= 174, FAIL >= 196
-#     + one utf16 spec:      OK <= 162+F16, FAIL >= 174+F16
-#     + one utf8 spec:       OK <= 131+F8,  FAIL >= 150+F8
-#     + utf8 + two utf16:    OK <= 101+S,   FAIL >= 119+S
-#   consistent assignment: CAP ~= 180, F16 ~= 16, F8 ~= 42.
-#
-# The budget keeps ~6% margin under the fitted CAP. Weights are for
-# the production 512-row tile - smaller tiles only lower the pressure,
-# so the same budget is safe for them. The reactive halving stays as a
-# safety net but is not expected to fire.
-
-VMEM_GROUP_BUDGET = 168
-
-
-def spec_vmem_weight(spec) -> int:
-    """Calibrated scoped-VMEM weight of one counts-kernel spec."""
-    if spec[0] == "utf8":
-        return 42
-    if spec[0] == "utf16":
-        return 16
-    niv = sum(len(x) for x in spec[1:] if isinstance(x, tuple))
-    return 2 + niv
-
-
-def group_specs_by_vmem(items, budget: int | None = None,
-                        max_count: int | None = None):
-    """Pack (item, spec) pairs into launch groups whose summed
-    calibrated weights fit the scoped-VMEM budget, preserving order.
-    `max_count` optionally bounds specs per group (the old
-    STRINGSEXT_HOT_GROUP knob). A single over-budget spec still gets
-    its own group."""
-    b = VMEM_GROUP_BUDGET if budget is None else budget
-    groups, cur, w = [], [], 0
-    for item in items:
-        _j, spec = item
-        sw = spec_vmem_weight(spec)
-        if cur and (w + sw > b or (max_count and len(cur) >= max_count)):
-            groups.append(cur)
-            cur, w = [], 0
-        cur.append(item)
-        w += sw
-    if cur:
-        groups.append(cur)
-    return groups
-
-
-def plan_hot_launches(items, max_count: int | None = None):
-    """Choose (tile_rows, launch groups) for a hot-only counts pass.
-
-    Scoped-VMEM pressure scales with the tile, so halving the tile
-    doubles the spec budget per launch; fewer launches beat per-tile
-    efficiency for large spec sets (all-41 sweep on v5e, 2026-08-21:
-    3 launches @ tile 512 = 9.04 GB/s, 2 @ 256 = 9.28, ONE @ 128 =
-    10.30). Tries 512/256/128-row tiles and returns the config with
-    the fewest launches (larger tile wins ties). The returned
-    tile_rows is a CAP - callers still clamp it to their chunk's
-    natural tile."""
-    best = None
-    for tile, budget in ((512, VMEM_GROUP_BUDGET),
-                         (256, 2 * VMEM_GROUP_BUDGET),
-                         (128, 4 * VMEM_GROUP_BUDGET)):
-        groups = group_specs_by_vmem(items, budget=budget,
-                                     max_count=max_count)
-        if best is None or len(groups) < len(best[1]):
-            best = (tile, groups)
-    return best
 
 
 def swar_mission_spec(mission):
@@ -232,7 +152,7 @@ def cjk_hot_spec(mission):
     occur ANYWHERE inside a filter-accepted char ("plausible" bytes).
     Every byte of every finding is plausible, so a 512-byte block whose
     plausible-byte count is zero provably contains no finding byte and
-    is cold. Used ONLY as a hot/cold block map (run.py engine=tpu) -
+    is cold. Used ONLY as a hot/cold block map (run.py engine=device) -
     never for run tables; the native emitter rescans hot ranges exactly
     (emitter.cpp align_cursor resumes the non-self-synchronizing
     decoders from a ground byte). Returns None for non-stateful
@@ -304,11 +224,10 @@ def cjk_hot_spec(mission):
         if bits == 0:
             return ("sbyte", (), ())
         # Tighter interval cap than the CJK plausible specs (8 vs 12):
-        # this spec joins LARGE fused groups (the all-encodings sweep),
-        # where per-spec interval count drives scoped-VMEM pressure -
-        # 12 intervals here tipped a 20-spec group 172 KB over the v5e
-        # 16 MB limit. Coarser superset = a few extra hot blocks for
-        # this mission only.
+        # this spec joins LARGE fused passes (the all-encodings sweep),
+        # where every interval is one more range test per word.
+        # Coarser superset = a few extra hot blocks for this mission
+        # only.
         return ("sbyte", _merge_to_max(decompose_intervals(bits, 256), 8),
                 ())
     if kind not in ("euc-kr", "big5", "shift_jis", "euc-jp", "gb18030"):

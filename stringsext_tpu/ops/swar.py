@@ -1,68 +1,57 @@
-"""SWAR flagship Pallas kernel: 4 stream bytes per int32 lane element.
+"""SWAR mission scan: 4 stream bytes per int32 word, plain jnp/lax.
 
-The per-byte kernels in pallas_scan.py spend one VPU lane per byte. This
-kernel packs 4 bytes per int32 lane (the natural memory layout) and
-computes everything with SIMD-within-register bit tricks, processing 4
-bytes (UTF-8) / 2 code units (UTF-16) per lane op:
+The packed words are the input's natural memory layout. Everything is
+computed with SIMD-within-register bit tricks, 4 bytes (UTF-8) / 2
+code units (UTF-16) per word op:
 
 - per-byte range tests run in two 16-bit channels with a carry-guard
   bias (~6 ops per channel for all 4 bytes at once);
 - all boolean structure (continuation chains, maximal-subpart lengths,
   claim/start logic) is mask algebra on 0x01-per-byte words;
 - AF/UBF filters are decomposed on the host into byte/codepoint
-  intervals (the standard filters are 1-3 intervals; arbitrary bitmask
-  filters fall back to the per-byte kernels in pallas_scan.py).
+  intervals (ops/specs.py; the standard filters are 1-3 intervals,
+  filters that decompose into too many go to the jnp lanes instead).
 
-Output formats (one int32 word per 4 input bytes):
-  UTF-8  word: 4 x 8-bit per-byte fields (pallas_scan bit layout)
+The whole pass is integer elementwise work followed by one sum per
+512-byte block. XLA fuses it on every backend: a neighbour word is an
+offset read of the same flat array, so no kernel language is needed.
+
+Field word formats (one int32 word per 4 input bytes):
+  UTF-8  word: 4 x 8-bit per-byte fields (bit layout below)
   UTF-16 word: unit fields at bits 0-7 (unit 0 = bytes 0-1) and 16-23
 
-Stream order is little-endian: byte 4*(r*128+c)+j is bits 8j..8j+7 of
-word (r, c). Stream edges behave as if surrounded by zero bytes (edge
-halos are zeroed in-kernel via the grid position), so zero-padded and
-unpadded inputs give identical results.
+Per-byte field bits: accept (0), event length (1-3, at event starts),
+grep match (4), event start (5), valid char (6).
+
+Stream order is little-endian: byte 4*i+j is bits 8j..8j+7 of flat
+word i. Stream edges behave as if surrounded by zero bytes, so
+zero-padded and unpadded inputs give identical results.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pallas_scan import (
-    ACCEPT_BIT,
-    GREP_BIT,
-    LANE,
-    LEN_SHIFT,
-    START_BIT,
-    VALID_BIT,
-    _roll,
-)
+LANE = 128  # words per 512-byte block: one row of a (rows, 128) panel
 
-# Halo in WORD rows. int32 blocks tile at (8, 128), and the kernel only
-# needs one word of context each side, so 8 rows (4 KiB) suffice.
-HALO_ROWS = 8
+ACCEPT_BIT = 1
+LEN_SHIFT = 1
+GREP_BIT = 1 << 4
+START_BIT = 1 << 5
+VALID_BIT = 1 << 6
+
+# Word rows of context each mesh shard takes from each neighbour
+# (parallel/mesh.build_sharded_counts). The counts need two words of
+# context each side, so one 512-byte row suffices.
+HALO_ROWS = 1
 
 L16 = 0x00010001  # per-16-bit-slot one
 G16 = 0x01000100  # per-slot carry guard (bit 8 of each slot)
 M01 = 0x01010101  # 0x01 per byte
 MFF_EVEN = 0x00FF00FF
-
-
-def _elem_shift(x, k):
-    """Shift by one lane ELEMENT (4 bytes) in stream order, k=+1/-1.
-
-    Slice+concat (a lane SHIFT) lowers ~25% cheaper in Mosaic than the
-    lane roll + iota + select formulation."""
-    if k > 0:  # lookahead
-        first_up = _roll(x[:, 0:1], -1, 0)  # next row's col 0
-        return jnp.concatenate([x[:, 1:], first_up], axis=1)
-    last_down = _roll(x[:, LANE - 1 :], 1, 0)  # prev row's col 127
-    return jnp.concatenate([last_down, x[:, : LANE - 1]], axis=1)
 
 
 def _lsr(x, k):
@@ -106,55 +95,27 @@ def _eq_mask(w, c):
 
 
 class _Panel:
-    """Byte-shift helpers over a (R,128) packed-word panel."""
+    """Byte-shift helpers over (K, m) word slabs whose ROWS are
+    independent windows of the stream, with zero bytes outside each
+    row. A whole stream is one (1, n_words) row; the stage-3 slab
+    re-derivation in ops/runs.py (extract_runs_swar_blocks) passes K
+    gathered windows, whose derived mission fields are only valid at
+    columns [1, m-1) and run-boundary flags at [2, m-2)."""
 
     def __init__(self, W):
         self.W = W
-        self.Wn = _elem_shift(W, +1)
+        self.Wn = self.fwd_elem(W)
 
     def fwd(self, kb):
         """Panel shifted forward (lookahead) by kb bytes (1..3)."""
         return _lsr(self.W, 8 * kb) | (self.Wn << (32 - 8 * kb))
 
-    def back_mask(self, m, kb):
-        """0x01-mask panel shifted back (lookback) by kb bytes."""
-        mp = self.back_elem(m)
-        return ((m << (8 * kb)) | _lsr(mp, 32 - 8 * kb)) & M01
-
     def back_elem(self, x):
-        """Array shifted back (lookback) by one ELEMENT (4 bytes)."""
-        return _elem_shift(x, -1)
-
-    def fwd_elem(self, x):
-        return _elem_shift(x, +1)
-
-
-class _SlabPanel:
-    """Byte-shift helpers over (K, m) word slabs whose ROWS are
-    independent windows of the stream (zero context outside each row).
-
-    Derived mission fields are only valid at columns [1, m-1); run
-    boundary flags derived from those fields are valid at [2, m-2).
-    Used by the stage-3 slab re-derivation in ops/runs.py (the
-    fixed-capacity gather path of extract_runs_swar_blocks)."""
-
-    def __init__(self, W):
-        self.W = W
-        self.Wn = jnp.concatenate(
-            [W[:, 1:], jnp.zeros_like(W[:, :1])], axis=1
-        )
-
-    def fwd(self, kb):
-        return _lsr(self.W, 8 * kb) | (self.Wn << (32 - 8 * kb))
-
-    def back_mask(self, m, kb):
-        mp = self.back_elem(m)
-        return ((m << (8 * kb)) | _lsr(mp, 32 - 8 * kb)) & M01
-
-    def back_elem(self, x):
+        """Array shifted back (lookback) by one WORD (4 bytes)."""
         return jnp.concatenate([jnp.zeros_like(x[:, :1]), x[:, :-1]], axis=1)
 
     def fwd_elem(self, x):
+        """Array shifted forward (lookahead) by one WORD (4 bytes)."""
         return jnp.concatenate([x[:, 1:], jnp.zeros_like(x[:, :1])], axis=1)
 
 
@@ -165,7 +126,7 @@ def _utf8_structure(P, extra_back_pack=None):
     filters only differ in the cheap `passes` mask on top).
 
     `extra_back_pack` (optional word) lets callers batch additional
-    back-shifted bits onto the claim lookback's element shift: its bits
+    back-shifted bits onto the claim lookback's word shift: its bits
     ride the same P.back_elem and come back as `extra_back`. Only WORD
     bits 3-7 are safe (the claim pack uses per-byte bits 0-2, i.e.
     word bits 0-2/8-10/16-18/24-26, and the claimed-mask shifts below
@@ -233,7 +194,7 @@ def _utf8_structure(P, extra_back_pack=None):
     ge4 = valid4
 
     noncont = cont ^ M01
-    # The three claim lookbacks (1-3 bytes) ride ONE element shift:
+    # The three claim lookbacks (1-3 bytes) ride ONE word shift:
     # pack the claim masks into bits 0-2 per byte, shift the packed
     # word back once, then extract each lookback distance's bit.
     C = (noncont & ge2) | ((noncont & ge3) << 1) | ((noncont & ge4) << 2)
@@ -291,7 +252,7 @@ def _utf8_masks(P, af_iv, ubf_iv, grep_char: int, struct=None):
     generic range test.
 
     `struct` (optional) supplies a precomputed `_utf8_structure(P)` so
-    several UTF-8 missions in one kernel share the structural work."""
+    several UTF-8 missions in one pass share the structural work."""
     W = P.W
     m = _utf8_structure(P) if struct is None else struct
 
@@ -420,7 +381,7 @@ def _utf16_slot_masks(u, un, pair, h, l, l_next, trail, cp_iv, grep_char):
             passes = passes | ((cp >= lo) & (cp <= hi))
     accept = valid & passes  # valid is already start-gated (& ~trail)
     # grep_char is static: with no grep the mask is statically false,
-    # so the compare/and AND the counts kernel's per-row grep
+    # so the compare/and AND the counts pass's per-row grep
     # reduction column constant-fold away.
     grep = (accept & (cp == grep_char) if grep_char >= 0
             else jnp.zeros_like(u) != 0)
@@ -429,7 +390,7 @@ def _utf16_slot_masks(u, un, pair, h, l, l_next, trail, cp_iv, grep_char):
 
 def _utf16_pair_structure(P, be: bool):
     """Surrogate structure of the panel (everything except the
-    pair1-lookback, which callers batch into one element shift)."""
+    pair1-lookback, which callers batch into one word shift)."""
     u0, u1, u2 = _utf16_units(P, be)
 
     # u in [0xD800,0xDBFF] <=> u>>10 == 0x36 (and 0x37 for lows): one
@@ -543,101 +504,6 @@ def swar_flags(w, w_prev, w_next):
     return acc, lf, gf, run_start, run_end
 
 
-def _edge_halos(prev_ref, cur_ref, next_ref, xw=None):
-    """Halo blocks with STREAM-EDGE zeroing: the BlockSpec index maps
-    must name an in-bounds block, so the first tile's prev (and last
-    tile's next) point at the stream's own edge rows - zero them via
-    the grid position so edge semantics equal "stream surrounded by
-    zero bytes". That makes unpadded and zero-padded inputs behave
-    identically (a previous halo WRAP suppressed run boundaries when
-    accepted chars sat at the stream edges).
-
-    `xw` (optional int32 scalar) XORs the stream words BEFORE the edge
-    zeroing, so results equal a scan of the pre-XORed stream - used by
-    the benchmark to make every iteration's input distinct without a
-    materialized full-size XOR pass feeding the kernel."""
-    i = pl.program_id(0)
-    n = pl.num_programs(0)
-    prev, cur, nxt = prev_ref[...], cur_ref[...], next_ref[...]
-    if xw is not None:
-        prev, cur, nxt = prev ^ xw, cur ^ xw, nxt ^ xw
-    prev = jnp.where(i == 0, 0, prev)
-    nxt = jnp.where(i == n - 1, 0, nxt)
-    return jnp.concatenate([prev, cur, nxt], axis=0)
-
-
-# ---------------------------------------------------------------- kernels
-
-
-def _flagship_swar_kernel(af_iv, ubf_iv, cp_iv_le, cp_iv_be, greps):
-    def kernel(prev_ref, cur_ref, next_ref, out8_ref, outle_ref, outbe_ref):
-        W = _edge_halos(prev_ref, cur_ref, next_ref)
-        P = _Panel(W)
-        rows = cur_ref.shape[0]
-        sl = slice(HALO_ROWS, HALO_ROWS + rows)
-        out8_ref[...] = swar_utf8_panel(P, af_iv, ubf_iv, greps[0])[sl, :]
-        outle_ref[...] = swar_utf16_panel(P, cp_iv_le, greps[1], False)[sl, :]
-        outbe_ref[...] = swar_utf16_panel(P, cp_iv_be, greps[2], True)[sl, :]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("af_iv", "ubf_iv", "cp_iv_le", "cp_iv_be", "greps",
-                     "tile_rows", "interpret"),
-)
-def flagship_swar_lanes(
-    words_2d: jax.Array,  # (rows, 128) int32: packed little-endian bytes
-    af_iv: tuple,
-    ubf_iv: tuple,
-    cp_iv_le: tuple,
-    cp_iv_be: tuple,
-    greps: tuple,
-    tile_rows: int = 256,
-    interpret: bool = False,
-):
-    """All three flagship missions in one SWAR pass. Returns
-    (utf8_words, utf16le_words, utf16be_words), each (rows,128) int32.
-
-    Interval parameters are tuples-of-tuples (static: the kernel
-    specializes per filter shape, which has a handful of variants)."""
-    rows = words_2d.shape[0]
-    assert words_2d.shape[1] == LANE and rows % tile_rows == 0
-    grid = (rows // tile_rows,)
-
-    halo_spec_prev = pl.BlockSpec(
-        (HALO_ROWS, LANE),
-        lambda i: (jnp.maximum(i * tile_rows - HALO_ROWS, 0) // HALO_ROWS, 0),
-        memory_space=pltpu.VMEM,
-    )
-    halo_spec_next = pl.BlockSpec(
-        (HALO_ROWS, LANE),
-        lambda i: (
-            jnp.minimum((i + 1) * tile_rows, rows - HALO_ROWS) // HALO_ROWS, 0
-        ),
-        memory_space=pltpu.VMEM,
-    )
-    tile_spec = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-
-    return pl.pallas_call(
-        _flagship_swar_kernel(af_iv, ubf_iv, cp_iv_le, cp_iv_be, greps),
-        grid=grid,
-        in_specs=[halo_spec_prev, tile_spec, halo_spec_next],
-        out_specs=(tile_spec, tile_spec, tile_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((rows, LANE), jnp.int32),
-            jax.ShapeDtypeStruct((rows, LANE), jnp.int32),
-            jax.ShapeDtypeStruct((rows, LANE), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            dimension_semantics=("parallel",)
-        ),
-    )(words_2d, words_2d, words_2d)
-
-
 def _swar_boundary_masks(P, specs, hot_only: bool = False):
     """(rs, re, acc, gf) 0x01-per-byte mask words for each mission in
     `specs`, computed at mask level (no packed field words).
@@ -647,14 +513,13 @@ def _swar_boundary_masks(P, specs, hot_only: bool = False):
       ("utf16", be, cp_iv, grep)      - 2 length-class bits
       ("sbyte", acc_iv, grep_iv)      - 1 length-class bit
     The per-byte bit budget is 8 length-class bits and 8 accept bits,
-    so any combination with sum(bits) <= 8 fits one kernel (e.g. the
+    so any combination with sum(bits) <= 8 fits one pass (e.g. the
     flagship utf8 + 2x utf16 uses exactly 8).
 
-    Element shifts (cross-word lane shifts) are the kernel's dominant
-    cost, so every lookback/lookahead is BATCHED: all UTF-16 missions'
-    pair trails share one shift, and every mission's length-class
-    masks (for run starts) and accept masks (for run ends) ride one
-    packed back-shift and one packed forward-shift."""
+    Every cross-word lookback/lookahead is BATCHED: all UTF-16
+    missions' pair trails share one word shift, and every mission's
+    length-class masks (for run starts) and accept masks (for run
+    ends) ride one packed back-shift and one packed forward-shift."""
 
     def slots(a0, a1):  # two unit-slot bools -> byte-slot 0x01 word
         return a0.astype(jnp.int32) | (a1.astype(jnp.int32) << 16)
@@ -672,8 +537,8 @@ def _swar_boundary_masks(P, specs, hot_only: bool = False):
 
     # The UTF-8 structural masks are filter-independent: compute them
     # once for all UTF-8 missions, and ride the utf16 pair trails on
-    # the claim lookback's element shift (word bits 3-6; see
-    # _utf8_structure) - one cross-lane shift instead of two. Only the
+    # the claim lookback's word shift (word bits 3-6; see
+    # _utf8_structure) - one word shift instead of two. Only the
     # first 4 UTF-16 missions fit those bits (bit 7+ would collide
     # with byte 1's claim bits after the <<8 in the claimed mask), so
     # larger mission sets - possible in hot_only mode, where the
@@ -780,115 +645,57 @@ def _swar_boundary_masks(P, specs, hot_only: bool = False):
     return out
 
 
-def _swar_counts_kernel(specs, out_rows, hot_only=False, with_xor=False):
-    def kernel(*refs):
-        if with_xor:
-            xw_ref, prev_ref, cur_ref, next_ref, out_ref = refs
-            xw = xw_ref[0]
-        else:
-            prev_ref, cur_ref, next_ref, out_ref = refs
-            xw = None
-        W = _edge_halos(prev_ref, cur_ref, next_ref, xw)
-        P = _Panel(W)
-        rows = cur_ref.shape[0]
-        sl = slice(HALO_ROWS, HALO_ROWS + rows)
-        masks = _swar_boundary_masks(P, specs, hot_only=hot_only)
-
-        def bytesum(x):  # sum of the 4 byte slots (each <= 1 here)
-            return _lsr(x * M01, 24)
-
-        cols = []
-        for rs, re, acc, gf in masks:
-            # One row of the word panel = 128 words = 512 bytes = one
-            # compaction block, so a lane reduction per interior row
-            # gives the per-block counts directly. Counts <= 512 fit
-            # 10-bit fields, so three quantities ride one reduce.
-            enc = (
-                bytesum(rs[sl]) + (bytesum(re[sl]) << 10) + (bytesum(acc[sl]) << 20)
-            )
-            cols.append(jnp.sum(enc, axis=1))
-            cols.append(jnp.sum(bytesum(gf[sl]), axis=1))
-        z = jnp.zeros_like(cols[0])
-        out_ref[...] = jnp.stack(cols + [z] * (out_rows - len(cols)), axis=0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("specs", "tile_rows", "interpret", "hot_only")
-)
+@functools.partial(jax.jit, static_argnames=("specs", "hot_only"))
 def swar_counts(
     words_2d: jax.Array,  # (rows, 128) int32: packed little-endian bytes
     specs: tuple,  # mission specs, see _swar_boundary_masks
-    tile_rows: int = 512,
-    interpret: bool = False,
     hot_only: bool = False,
-    xor_word: jax.Array | None = None,  # int32[1]: XOR stream in-kernel
+    xor_word: jax.Array | None = None,  # int32 scalar: XOR the stream
 ):
     """Mission scans fused with run-compaction stage 1: one SWAR pass
-    computes the mission masks, derives the run-boundary flags
-    in-register, and reduces them to per-512-byte-block counts - no
-    full-size lane array ever leaves VMEM (vs. flagship_swar_lanes +
-    extract_runs_packed4, which round-trips 3x the input through HBM).
+    computes the mission masks, derives the run-boundary flags and
+    reduces them to per-512-byte-block counts, so only the count panel
+    (1/64th of the input) is written back.
 
-    Returns int32[R, rows] (R = 2*len(specs) padded up to a multiple
-    of 8): rows 2*m / 2*m+1 are mission m's packed block counts
-    (run_start | run_end<<10 | accept<<20) and grep counts. Consumed
-    by ops/runs.py:extract_runs_swar_blocks (stages 2-3) or used
-    directly as a hot-block map (accept>0) by the engine=tpu scan.
+    Returns int32[2 * len(specs), rows]: rows 2*m / 2*m+1 are mission
+    m's packed block counts (run_start | run_end<<10 | accept<<20) and
+    grep counts. Consumed by ops/runs.py:extract_runs_swar_blocks
+    (stages 2-3) or used directly as a hot-block map (accept>0) by the
+    device engine. `hot_only` skips the run-boundary algebra: the
+    run_start/run_end fields are then zero.
 
-    Stream edges behave as if the stream were surrounded by zero
-    bytes (the edge halos are zeroed in-kernel), so zero-padded and
-    unpadded inputs give identical results; the stage-3 slab
-    re-derivation replicates the zero margins so counts and slabs
-    always agree. Caveat: a filter that ACCEPTS NUL (AF bit 0) treats
-    the virtual zero context as accepted chars at the edges, exactly
-    as a zero-padded caller would see."""
+    Stream edges behave as if the stream were surrounded by zero bytes,
+    so zero-padded and unpadded inputs give identical results; the
+    stage-3 slab re-derivation replicates the zero margins so counts
+    and slabs always agree. `xor_word` XORs every stream word before
+    the scan (the benchmark's way to make each iteration's input
+    distinct). Caveat: a filter that ACCEPTS NUL (AF bit 0) treats the
+    virtual zero context as accepted chars at the edges, exactly as a
+    zero-padded caller would see."""
     rows = words_2d.shape[0]
-    assert words_2d.shape[1] == LANE and rows % tile_rows == 0
-    grid = (rows // tile_rows,)
-    out_rows = ((2 * len(specs) + 7) // 8) * 8
+    assert words_2d.shape[1] == LANE
+    with jax.named_scope("swar_counts"):
+        W = words_2d.reshape(1, rows * LANE)
+        if xor_word is not None:
+            W = W ^ jnp.asarray(xor_word, jnp.int32)
+        masks = _swar_boundary_masks(_Panel(W), specs, hot_only=hot_only)
 
-    halo_spec_prev = pl.BlockSpec(
-        (HALO_ROWS, LANE),
-        lambda i: (jnp.maximum(i * tile_rows - HALO_ROWS, 0) // HALO_ROWS, 0),
-        memory_space=pltpu.VMEM,
-    )
-    halo_spec_next = pl.BlockSpec(
-        (HALO_ROWS, LANE),
-        lambda i: (
-            jnp.minimum((i + 1) * tile_rows, rows - HALO_ROWS) // HALO_ROWS, 0
-        ),
-        memory_space=pltpu.VMEM,
-    )
-    tile_spec = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((out_rows, tile_rows), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
+        def blocksum(x):
+            # Sum of the 4 byte slots (each <= 1 here), then one sum
+            # per 512-byte block. Counts <= 512 fit 10-bit fields, so
+            # three quantities ride one reduce.
+            return jnp.sum(_lsr(x * M01, 24).reshape(rows, LANE), axis=1)
 
-    in_specs = [halo_spec_prev, tile_spec, halo_spec_next]
-    args = (words_2d, words_2d, words_2d)
-    if xor_word is not None:
-        in_specs = [
-            pl.BlockSpec((1,), lambda i: (0,), memory_space=pltpu.SMEM)
-        ] + in_specs
-        args = (jnp.asarray(xor_word, jnp.int32).reshape(1),) + args
-
-    return pl.pallas_call(
-        _swar_counts_kernel(specs, out_rows, hot_only,
-                            with_xor=xor_word is not None),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((out_rows, rows), jnp.int32),
-        interpret=interpret,
-        # Grid steps are independent (each writes its own output
-        # column block; halo reads may overlap): "parallel" lets
-        # Mosaic pipeline them, measured ~4% faster than the default.
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            dimension_semantics=("parallel",)
-        ),
-    )(*args)
+        cols = []
+        for rs, re, acc, gf in masks:
+            if hot_only:
+                cols.append(blocksum(acc) << 20)
+            else:
+                cols.append(
+                    blocksum(rs) + (blocksum(re) << 10) + (blocksum(acc) << 20)
+                )
+            cols.append(blocksum(gf))
+        return jnp.stack(cols, axis=0)
 
 
 def flagship_swar_counts(
@@ -898,8 +705,6 @@ def flagship_swar_counts(
     cp_iv_le: tuple,
     cp_iv_be: tuple,
     greps: tuple,
-    tile_rows: int = 512,
-    interpret: bool = False,
     xor_word: jax.Array | None = None,
 ):
     """The flagship 3-mission (UTF-8 + UTF-16LE/BE) counts pass - a
@@ -909,34 +714,25 @@ def flagship_swar_counts(
         ("utf16", False, cp_iv_le, greps[1]),
         ("utf16", True, cp_iv_be, greps[2]),
     )
-    return swar_counts(
-        words_2d, specs, tile_rows=tile_rows, interpret=interpret,
-        xor_word=xor_word,
-    )
+    return swar_counts(words_2d, specs, xor_word=xor_word)
 
 
 # ------------------------------------------------------- host-side helpers
 
 
-# Static mission specs + launch planning live in ops/specs.py (JAX-FREE
+# Static mission specs live in ops/specs.py (JAX-FREE
 # - the host-only paths import them without touching jax); re-exported
 # here for device-side callers.
 from .specs import (  # noqa: F401,E402
-    VMEM_GROUP_BUDGET,
-    _merge_to_max,
-    _plausible_to_spec,
     cjk_hot_spec,
     decompose_intervals,
-    group_specs_by_vmem,
-    plan_hot_launches,
-    spec_vmem_weight,
     swar_mission_spec,
     utf8_lead_intervals,
     utf16_cp_intervals,
 )
 
 def swar_params(missions):
-    """Static interval parameters for flagship_swar_lanes, or None when
+    """Static interval parameters for flagship_swar_counts, or None when
     a filter decomposes into too many intervals to be worth it."""
     m8, mle, mbe = missions[0], missions[1], missions[2]
     af_iv, ubf_iv = utf8_lead_intervals(m8)

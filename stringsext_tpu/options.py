@@ -76,7 +76,7 @@ class Args:
     # at -V). Environment variables of the same name override these
     # (STRINGSEXT_ENGINE, STRINGSEXT_HOT_GROUP, STRINGSEXT_MESH,
     # STRINGSEXT_STREAM_FILE_MIN, STRINGSEXT_HOST_HOTMAP).
-    engine: Optional[str] = None  # --engine auto|tpu|python
+    engine: Optional[str] = None  # --engine auto|device|python
     checkpoint: Optional[str] = None  # --checkpoint FILE
     hot_group: Optional[str] = None  # --hot-group N
     mesh: bool = False  # --mesh

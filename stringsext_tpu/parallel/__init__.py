@@ -1,1 +1,2 @@
-"""Multi-chip scaling: mesh-sharded scanning over ICI/DCN."""
+"""Multi-device scaling: mesh-sharded scanning across devices and
+processes."""

@@ -1,4 +1,4 @@
-"""Multi-host orchestration over DCN.
+"""Multi-process orchestration across hosts.
 
 The reference is a single process (`std::sync::mpsc` + scoped threads,
 main.rs:98,151) that reads each input byte exactly once
@@ -33,7 +33,7 @@ boundary byte:
       an event to START exactly at the boundary with every earlier
       event reporting and ending before it (`_cjk_boundary_aligned`);
   iso-2022-jp: nothing extra locally - its hot spec is mode-blind
-      (pallas_swar.cjk_hot_spec), so a COLD slice contains no escapes
+      (ops/specs.cjk_hot_spec), so a COLD slice contains no escapes
       and no pair-phase carriers: every cold byte is a one-byte event
       in every mode, hence the boundary is an event start with
       output_flag=false. Only the entry MODE is non-local; each rank
@@ -43,7 +43,7 @@ boundary byte:
       tiny allgather + prefix composition yields each rank's entry
       mode (`_iso_mode_transfer`).
 
-Multi-host execution needs an actual pod slice; the process-level tests
+Multi-host execution needs several hosts; the process-level tests
 (tests/test_distributed_2proc.py) run TRUE 2- and 3-process scans over
 localhost Gloo and pin byte-identical output plus O(shard) bytes-read.
 """
@@ -85,7 +85,23 @@ def initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=_rank_local_devices(process_id),
     )
+
+
+def _rank_local_devices(process_id: Optional[int]) -> Optional[List[int]]:
+    """The one local GPU a rank opens: card (process_id % cards on this
+    host), so ranks that share a host never all reserve every card.
+    None (JAX's default) on hosts without NVIDIA device nodes, and
+    when CUDA_VISIBLE_DEVICES already narrows what the rank sees."""
+    import glob
+
+    if os.environ.get("CUDA_VISIBLE_DEVICES") is not None:
+        return None
+    cards = len(glob.glob("/dev/nvidia[0-9]*"))
+    if not cards:
+        return None
+    return [int(process_id or 0) % cards]
 
 
 def host_shard_range(total_bytes: int, shard_len: int) -> Tuple[int, int]:
@@ -377,7 +393,7 @@ def _shard_hot_maps(missions, data, p_lo: int, engine: str):
     """Hot byte ranges over THIS RANK'S shard buffer (buffer-relative
     coordinates; the shard base is even by the boundary predicate, so
     UTF-16 unit pairing by buffer offset matches the stream).
-    engine=tpu uses the device kernels; engine=auto honors the opt-in
+    engine=device uses the device passes; engine=auto honors the opt-in
     STRINGSEXT_HOST_HOTMAP=1 numpy prepass (the no-device skip
     machinery - what makes a many-mission sparse sweep feasible on
     plain hosts)."""
@@ -385,7 +401,7 @@ def _shard_hot_maps(missions, data, p_lo: int, engine: str):
 
     if not len(data):
         return {}
-    if engine == "tpu":
+    if engine == "device":
         from ..ops.specs import cjk_hot_spec, swar_mission_spec
         from ..run import _device_hot_ranges_swar, _warn_once
 
@@ -426,6 +442,10 @@ def scan_shard(inputs, spans, missions, sl, r0: int, r1: int,
     one native scan thread per mission. `entry_mode` seeds the
     ISO-2022-JP decoder mode (composed across earlier shards).
     Returns ([(res_columns, strbuf_bytes)] per mission, (p_lo, p_hi))."""
+    from ..run import _engine_name
+
+    engine = _engine_name(engine)
+
     from concurrent.futures import ThreadPoolExecutor
 
     from .. import native
@@ -458,7 +478,7 @@ def scan_shard(inputs, spans, missions, sl, r0: int, r1: int,
     runtable_feeds = {}
     from ..run import _feed_enabled
 
-    if engine == "tpu" and len(data) and _feed_enabled():
+    if engine == "device" and len(data) and _feed_enabled(len(data)):
         # Per-shard device run-table feed: the shard base is a true
         # event start for every mission (the windowed boundary search
         # guarantees it), so the chunk-feed builder applies directly
@@ -621,6 +641,10 @@ def scan_shard_checkpointed(inputs, spans, missions, sl, r0: int, r1: int,
     """scan_shard with per-chunk crash recovery (see the section
     comment above). Returns (per_mission, (p_lo, p_hi),
     chunks_skipped, chunks_total)."""
+    from ..run import _engine_name
+
+    engine = _engine_name(engine)
+
     from concurrent.futures import ThreadPoolExecutor
 
     from .. import native
@@ -926,6 +950,10 @@ def distributed_run(args, missions, out, engine: str = "auto",
     with the same world; the merge phase is idempotent (the output is
     rewritten in full), so no output bookkeeping is needed."""
     global BYTES_READ
+    from ..run import _engine_name
+
+    engine = _engine_name(engine)
+
     from ..encodings import encoding_kind
     from ..input import slice_table
     from ..run import _emit_lines, _warn_once
@@ -1144,6 +1172,10 @@ def simulate_ranks(args, paths, nprocs: int, engine: str = "auto"):
     the per-rank shard read sizes (the O(shard) evidence - excludes
     the bounded boundary-search windows), and n_rows.
     """
+    from ..run import _engine_name
+
+    engine = _engine_name(engine)
+
     import io as _io
 
     from ..encodings import encoding_kind

@@ -2,15 +2,15 @@
 thread-per-mission + sequential-slices model (SURVEY.md section 2
 "Parallelism strategies" and section 5 "Long-context").
 
-Design (TPU-native, not a port):
+Design:
 
 - 2-D device mesh ("data", "mission").
 - The byte stream is sharded over the "data" axis with small halo
-  exchange (`jax.lax.ppermute` over ICI): each shard receives the last
-  4 bytes of its left neighbor (context so leading continuation bytes /
-  unit parity / straddling ISO escapes classify exactly) and the first
-  8 bytes of its right neighbor (lookahead so trailing multi-byte chars
-  classify exactly). This replaces the reference's sequential
+  exchange (`jax.lax.ppermute` between neighbouring devices): each
+  shard receives the last 4 bytes of its left neighbor (context so
+  leading continuation bytes / unit parity / straddling ISO escapes
+  classify exactly) and the first 8 bytes of its right neighbor
+  (lookahead so trailing multi-byte chars classify exactly). This replaces the reference's sequential
   decoder-carry (scanner.rs:45-48) with parallel carry-free
   classification: UTF-8 / UTF-16 validity is locally decidable given
   <=4 bytes of context on each side.
@@ -187,7 +187,7 @@ def build_sharded_scan(
         di = jax.lax.axis_index("data")
         mi = jax.lax.axis_index("mission")
 
-        # Halo exchange over the data axis (ICI neighbors). Non-wrapping
+        # Halo exchange over the data axis (neighbours). Non-wrapping
         # permutes zero-fill the stream edges; zero bytes consume
         # themselves in every supported encoding, so edge shards
         # classify exactly (see module docstring).
@@ -298,51 +298,41 @@ def build_sharded_scan(
 
 
 def build_sharded_counts(
-    specs: tuple, mesh: Mesh, shard_rows: int, tile_rows: int | None = None,
-    interpret: bool = False, hot_only: bool = False,
+    specs: tuple, mesh: Mesh, shard_rows: int, hot_only: bool = False,
 ):
-    """Compile the fused flagship SWAR counts kernel
-    (ops/pallas_swar.swar_counts: every mission in one pass, stage-1 run
-    compaction in-register) sharded over the mesh's "data" axis.
+    """Compile the fused SWAR counts pass (ops/swar.swar_counts: every
+    mission in one pass, stage-1 run compaction fused in) sharded over
+    the mesh's "data" axis.
 
-    The byte-stream halo is HALO_ROWS word-rows (4 KiB) each side,
-    exchanged with `ppermute` over ICI; at the stream edges each shard
-    substitutes its own edge rows, replicating the single-device
-    kernel's halo wrap, so the per-512-byte-block counts are BIT-EXACT
-    equal to a single-device `swar_counts` over the whole stream
-    (tests/test_parallel.py pins this on the virtual CPU mesh).
+    Each shard takes HALO_ROWS word-rows of context from each
+    neighbour with `ppermute`; the non-wrapping permute zero-fills at
+    the stream edges, which is exactly the single-device pass's
+    zero-context edge semantics, so the per-512-byte-block counts are
+    BIT-EXACT equal to a single-device `swar_counts` over the whole
+    stream (tests/test_parallel.py pins this on the virtual CPU mesh).
 
-    Missions need no mesh axis here - the fused kernel carries up to 8
-    length-class bits of missions per byte in-register, so mission
-    parallelism is free inside the pass; only the tiny [R, rows] count
-    panels (1/128th of the input) leave each device.
+    Missions need no mesh axis here - the pass fuses every mission;
+    only the tiny [R, rows] count panels (1/64th of the input) leave
+    each device.
 
     Returns fn(words_2d[n_data * shard_rows, 128]) ->
     int32[n_data, R, shard_rows].
     """
     from jax import shard_map
 
-    from ..ops.pallas_swar import HALO_ROWS, LANE, swar_counts
+    from ..ops.swar import HALO_ROWS, LANE, swar_counts
 
     n_data = mesh.shape["data"]
     H = HALO_ROWS
     assert shard_rows >= H, "shards must cover at least one halo"
-    ext_rows = shard_rows + 2 * H
-    tr = tile_rows or ext_rows
-    assert ext_rows % tr == 0
 
     def body(w_shard):  # [shard_rows, LANE] local words
         right_to_left = [(i + 1, i) for i in range(n_data - 1)]
         left_to_right = [(i, i + 1) for i in range(n_data - 1)]
-        # Non-wrapping ppermute zero-fills at the edge shards, which
-        # exactly matches the single-device kernel's stream-edge
-        # semantics (edge halos zeroed in-kernel), so edge-block counts
-        # match bit-exactly.
         from_right = jax.lax.ppermute(w_shard[:H], "data", right_to_left)
         from_left = jax.lax.ppermute(w_shard[-H:], "data", left_to_right)
         ext = jnp.concatenate([from_left, w_shard, from_right], axis=0)
-        counts = swar_counts(ext, specs, tile_rows=tr,
-                             interpret=interpret, hot_only=hot_only)
+        counts = swar_counts(ext, specs, hot_only=hot_only)
         return counts[None, :, H : H + shard_rows]
 
     sharded = shard_map(

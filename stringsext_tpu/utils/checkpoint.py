@@ -2,7 +2,7 @@
 
 The reference has no checkpointing; its closest feature is
 `--counter-offset` (options.rs:78-80, mission.rs:388-394), i.e. manual
-resume by byte offset when a huge input was split across runs. The TPU
+resume by byte offset when a huge input was split across runs. This
 build gets real resume by checkpointing each mission's carry state
 (SURVEY.md section 5): `(consumed_bytes, decode cursor, leftover chars,
 continuation flag)` - everything the emission automaton needs to

@@ -1,13 +1,13 @@
 """Tracing / profiling hooks.
 
 The reference has none (SURVEY.md section 5: "no timing, counters, or
-trace hooks anywhere"). The TPU build adds:
+trace hooks anywhere"). This build adds:
 
 - `Scope`: lightweight wall-clock + bytes/s counters for pipeline
   stages, dumped with `report()` (enable with STRINGSEXT_PROFILE=1 or
   programmatically).
 - `device_trace`: context manager around `jax.profiler.trace` for
-  XLA/TPU-level traces viewable in TensorBoard/XProf.
+  XLA device traces viewable in TensorBoard/XProf.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def report(out=None) -> None:
 
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str] = None) -> Iterator[None]:
-    """TPU-level trace via jax.profiler (XProf/TensorBoard format)."""
+    """Device trace via jax.profiler (XProf/TensorBoard format)."""
     logdir = logdir or os.environ.get("STRINGSEXT_TRACE_DIR")
     if not logdir:
         yield

@@ -2,7 +2,7 @@
 output.
 
 The reference's closest feature is manual resume via --counter-offset
-(options.rs:78-80); the TPU build checkpoints the full streaming state
+(options.rs:78-80); this build checkpoints the full streaming state
 (mission carry states + stream offset + carry tail + held boundary
 findings) after every chunk, so an interrupted scan resumes
 mid-stream with output byte-identical to an uninterrupted run.

@@ -1,11 +1,11 @@
 """CJK hot-range scanning: the plausible-byte hot/cold map
-(ops/pallas_swar.cjk_hot_spec) + the native emitter's ground-byte
+(ops/specs.cjk_hot_spec) + the native emitter's ground-byte
 cursor alignment (emitter.cpp align_cursor, kinds 4-8) must reproduce
 the full scan byte-for-byte.
 
 The reference has no analog (it always decodes the whole stream,
 finding_collection.rs:84-342); these tests pin the exactness contract
-of the TPU-native window-skipping extension for the
+of the device window-skipping extension for the
 non-self-synchronizing CJK encodings."""
 
 import numpy as np
@@ -13,14 +13,14 @@ import pytest
 
 from stringsext_tpu.input import LoadedStream
 from stringsext_tpu.mission import Missions
-from stringsext_tpu.ops.pallas_swar import cjk_hot_spec
+from stringsext_tpu.ops.swar import cjk_hot_spec
 from stringsext_tpu.run import _scan_arrays
 
 
 @pytest.fixture(autouse=True)
 def _hot_map_path(monkeypatch):
     """These tests target the hot/cold-map machinery; the run-table
-    feed (default-on under engine=tpu) would bypass it."""
+    feed (default-on under engine=device) would bypass it."""
     monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "0")
 
 CJK = [
@@ -66,7 +66,7 @@ def test_cjk_tpu_engine_matches_native(codec, enc, text, ubf):
     data = _sparse_corpus(codec, text, seed=hash(enc) % 2**32)
     kw = dict(flag_unicode_block_filter=ubf) if ubf else {}
     a = _scan(data, "native", enc, **kw)
-    b = _scan(data, "tpu", enc, **kw)
+    b = _scan(data, "device", enc, **kw)
     assert a == b
 
 
@@ -130,7 +130,7 @@ def test_iso2022_output_flag_across_cold_spans(cold, gap):
         )
         kw = dict(flag_unicode_block_filter="Asian")
         a = _scan(data, "native", "ISO-2022-JP", **kw)
-        b = _scan(data, "tpu", "ISO-2022-JP", **kw)
+        b = _scan(data, "device", "ISO-2022-JP", **kw)
         assert a == b, (cold, gap, mid[:8])
 
 

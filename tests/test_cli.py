@@ -91,11 +91,11 @@ def test_replacement_encoding_all_engines(tmp_path):
     for argv in (["-e", "replacement"],
                  ["-t", "x", "-e", "replacement", "-e", "UTF-8"]):
         outs = {}
-        for engine in ("python", "auto", "tpu"):
+        for engine in ("python", "auto", "device"):
             buf = io.BytesIO()
             run(parse_args(argv + [str(p)]), out=buf, engine=engine)
             outs[engine] = buf.getvalue()
-        assert outs["python"] == outs["auto"] == outs["tpu"]
+        assert outs["python"] == outs["auto"] == outs["device"]
         if argv == ["-e", "replacement"]:
             assert outs["python"] == b"\xef\xbb\xbf\n"
         else:

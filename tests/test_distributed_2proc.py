@@ -22,7 +22,7 @@ across shard boundaries - entry modes ride the transfer composition),
 and the TCP gather-to-rank-0 (no padded allgather).
 
 The reference has no distributed tests (nothing distributed to test);
-this pins the TPU build's added multi-host path end-to-end at the
+this pins the added multi-host path end-to-end at the
 process boundary, not just on a virtual in-process mesh.
 """
 
@@ -92,11 +92,12 @@ def _cli_worker_main():
             assert read < 0.75 * total, (read, total,
                                          distributed.LAST_STATS)
         if name == "sparse":
-            # engine=tpu (interpret-mode device hot maps over each
-            # rank's shard) must produce the identical stream
+            # engine=device (the old name of engine=device: device hot
+            # maps over each rank's shard) must produce the identical
+            # stream
             buf_t = io.BytesIO()
             rc = distributed.distributed_run(args, ms, buf_t,
-                                             engine="tpu")
+                                             engine="device")
             assert rc == 0
             assert buf_t.getvalue() == buf.getvalue()
             # KV-store-less gather fallback (chunked allgather rounds):
@@ -227,7 +228,7 @@ def _worker_main():
     from jax.sharding import PartitionSpec as P
 
     from stringsext_tpu.mission import Missions
-    from stringsext_tpu.ops.pallas_swar import swar_counts, swar_params
+    from stringsext_tpu.ops.swar import swar_counts, swar_params
     from stringsext_tpu.parallel.mesh import build_sharded_counts
 
     ms = Missions.new(flag_encoding=["UTF-8", "utf-16le", "utf-16be"])
@@ -265,7 +266,7 @@ def _worker_main():
     )
 
     counts_step = build_sharded_counts(
-        specs, mesh, shard_rows=shard_rows, interpret=True
+        specs, mesh, shard_rows=shard_rows
     )
     out = counts_step(garr)  # [n_data, R, shard_rows], sharded P("data")
 
@@ -273,8 +274,7 @@ def _worker_main():
     import jax.numpy as jnp
 
     ref = np.asarray(
-        swar_counts(jnp.asarray(words), specs, tile_rows=rows,
-                    interpret=True)
+        swar_counts(jnp.asarray(words), specs)
     )
 
     checked = 0

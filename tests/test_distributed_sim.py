@@ -134,7 +134,7 @@ def test_macintosh_overflow_spec_allows_split(tmp_path):
     must keep the whole mission SET shardable - one spec-less mission
     used to force rank-0-scans-all for every encoding."""
     from stringsext_tpu.encodings import full_byte_table
-    from stringsext_tpu.ops.pallas_swar import (
+    from stringsext_tpu.ops.swar import (
         cjk_hot_spec,
         swar_mission_spec,
     )
@@ -209,7 +209,7 @@ def test_randomized_distributed_differential(tmp_path):
 
 
 def test_distributed_runtable_feed(tmp_path, monkeypatch):
-    """Per-shard run-table feed (engine=tpu + STRINGSEXT_RUNTABLE_FEED):
+    """Per-shard run-table feed (engine=device + STRINGSEXT_RUNTABLE_FEED):
     the shard base is a true event start for every mission, so the
     cursor-grounded feed builder applies with cursor 0; ISO-2022-JP
     engages only on ground-entry shards (mode switches planted so some
@@ -244,7 +244,7 @@ def test_distributed_runtable_feed(tmp_path, monkeypatch):
         monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "1")
         for nprocs in (2, 4):
             got, _stats = D.simulate_ranks(
-                parse_args(argv + paths), paths, nprocs, engine="tpu")
+                parse_args(argv + paths), paths, nprocs, engine="device")
             assert got == expected, (argv, nprocs)
         monkeypatch.delenv("STRINGSEXT_RUNTABLE_FEED")
         assert expected.count(b"\n") > 100

@@ -80,19 +80,19 @@ def test_native_matches_python(ci):
 
 @pytest.mark.parametrize("ci", range(len(CONFIGS)))
 def test_tpu_engine_matches_python(ci):
-    """engine='tpu': device run tables + window-skipping emitter must be
+    """engine='device': device run tables + window-skipping emitter must be
     byte-identical (device kernels run on the CPU backend here)."""
     for i in range(2):
         blob = _corpus(i + ci + 5)
         a = _run(CONFIGS[ci], blob, "python")
-        b = _run(CONFIGS[ci], blob, "tpu")
-        assert a == b, f"config {ci} corpus {i}: tpu engine differs"
+        b = _run(CONFIGS[ci], blob, "device")
+        assert a == b, f"config {ci} corpus {i}: device engine differs"
 
 
 def test_tpu_engine_golden(golden_dir):
     import subprocess, os, sys
 
-    env = dict(os.environ, STRINGSEXT_ENGINE="tpu", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, STRINGSEXT_ENGINE="device", JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-m", "stringsext_tpu.cli", "-q", "16", "-g", "63",
          "-tx", "-a", "All-Ctrl", "-u", "Common", "-e", "UTF-8",

@@ -6,7 +6,7 @@
 - The OutputFull path (finding_collection.rs:306-323): the reference
   holds decoded text in a fixed 0x9192-byte pinned buffer; on overflow
   it CLEARS the collection, warns on stderr and loses findings. The
-  TPU build's engines append to growable buffers, so the overflow
+  this build's engines append to growable buffers, so the overflow
   cannot occur; the tests below pin the superior observable behavior -
   pathological inputs (one enormous accepted run, output lines close
   to the reference's whole buffer size) produce COMPLETE output with

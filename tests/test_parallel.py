@@ -229,17 +229,17 @@ def test_sharded_scan_all_kinds_random(seed):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_swar_counts_match_single_device():
-    """The fused flagship SWAR counts kernel sharded over the data axis
-    (ppermute halos + edge self-wrap) must be BIT-exact vs one
-    single-device pass over the whole stream."""
-    from stringsext_tpu.ops.pallas_swar import swar_mission_spec, swar_counts
+    """The fused flagship SWAR counts pass sharded over the data axis
+    (ppermute halos, zero-filled at the stream edges) must be BIT-exact
+    vs one single-device pass over the whole stream."""
+    from stringsext_tpu.ops.swar import swar_mission_spec, swar_counts
     from stringsext_tpu.parallel.mesh import build_sharded_counts
 
     ms = Missions.new(flag_encoding=["UTF-8", "utf-16le", "utf-16be"])
     specs = tuple(swar_mission_spec(m) for m in ms.v)
     n_data, shard_rows = 8, 48
     mesh = make_mesh(n_data, 1)
-    fn = build_sharded_counts(specs, mesh, shard_rows, interpret=True)
+    fn = build_sharded_counts(specs, mesh, shard_rows)
 
     rows = n_data * shard_rows
     for trial in range(3):
@@ -251,9 +251,7 @@ def test_sharded_swar_counts_match_single_device():
         w = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
 
         got = np.asarray(fn(w))  # [n_data, R, shard_rows]
-        want = np.asarray(
-            swar_counts(w, specs, tile_rows=rows, interpret=True)
-        )  # [R, rows]
+        want = np.asarray(swar_counts(w, specs))  # [R, rows]
         got_flat = np.concatenate([got[d] for d in range(n_data)], axis=1)
         assert (got_flat == want).all(), f"trial {trial}"
 
@@ -265,7 +263,7 @@ def test_sharded_swar_counts_random_missions(seed):
     mission sets (UTF-8 / UTF-16 / single-byte, random filters/greps)
     over random sparse corpora with strings planted AT the shard
     seams."""
-    from stringsext_tpu.ops.pallas_swar import swar_mission_spec, swar_counts
+    from stringsext_tpu.ops.swar import swar_mission_spec, swar_counts
     from stringsext_tpu.parallel.mesh import build_sharded_counts
 
     r = np.random.default_rng(seed)
@@ -289,7 +287,7 @@ def test_sharded_swar_counts_random_missions(seed):
 
     n_data, shard_rows = 4, 32
     mesh = make_mesh(n_data, 1)
-    fn = build_sharded_counts(specs, mesh, shard_rows, interpret=True)
+    fn = build_sharded_counts(specs, mesh, shard_rows)
 
     rows = n_data * shard_rows
     raw = np.zeros(rows * 512, np.uint8)
@@ -309,7 +307,7 @@ def test_sharded_swar_counts_random_missions(seed):
 
     w = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
     got = np.asarray(fn(w))
-    want = np.asarray(swar_counts(w, specs, tile_rows=rows, interpret=True))
+    want = np.asarray(swar_counts(w, specs))
     got_flat = np.concatenate([got[d] for d in range(n_data)], axis=1)
     assert (got_flat == want).all(), f"encs {encs} kw {kw}"
 
@@ -324,7 +322,7 @@ def test_host_shard_range_partition():
 
 
 def test_engine_tpu_hot_group_sizes(monkeypatch, tmp_path):
-    """STRINGSEXT_HOT_GROUP: the engine=tpu hot-map pass must produce
+    """STRINGSEXT_HOT_GROUP: the engine=device hot-map pass must produce
     identical CLI output for any missions-per-launch grouping (1-group,
     multi-group, and the production default)."""
     import io
@@ -352,14 +350,14 @@ def test_engine_tpu_hot_group_sizes(monkeypatch, tmp_path):
     for grp in ("2", "3", "20"):
         monkeypatch.setenv("STRINGSEXT_HOT_GROUP", grp)
         buf = io.BytesIO()
-        run(parse_args(argv), out=buf, engine="tpu")
+        run(parse_args(argv), out=buf, engine="device")
         assert buf.getvalue() == want, f"group size {grp}"
     assert len(want) > 100
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_engine_tpu_mesh_hot_path(monkeypatch, tmp_path):
-    """STRINGSEXT_MESH=1: the engine=tpu hot-map pass runs the SHARDED
+    """STRINGSEXT_MESH=1: the engine=device hot-map pass runs the SHARDED
     counts kernel over the virtual mesh; CLI output must equal the
     native engine exactly."""
     import io
@@ -381,16 +379,16 @@ def test_engine_tpu_mesh_hot_path(monkeypatch, tmp_path):
     outs = {}
     for mesh_mode in ("0", "1"):
         monkeypatch.setenv("STRINGSEXT_MESH", mesh_mode)
-        for engine in (("native",) if mesh_mode == "0" else ("tpu",)):
+        for engine in (("native",) if mesh_mode == "0" else ("device",)):
             buf = io.BytesIO()
             run(parse_args(argv), out=buf, engine=engine)
             outs[(mesh_mode, engine)] = buf.getvalue()
-    assert outs[("1", "tpu")] == outs[("0", "native")]
-    assert len(outs[("1", "tpu")]) > 100
+    assert outs[("1", "device")] == outs[("0", "native")]
+    assert len(outs[("1", "device")]) > 100
 
 
 def test_compiled_collectives_are_neighbor_ppermute_only():
-    """Machine-check the MESH_SCALING comm claim on the virtual mesh:
+    """Machine-check the mesh's communication claim on the virtual mesh:
     the compiled sharded programs contain NO all-gather/all-reduce/
     all-to-all/reduce-scatter, and every collective-permute is a
     data-axis neighbor exchange (scripts/audit_collectives.py is the
@@ -404,7 +402,7 @@ def test_compiled_collectives_are_neighbor_ppermute_only():
     from audit_collectives import audit_hlo, compiled_text
 
     from stringsext_tpu.mission import Missions
-    from stringsext_tpu.ops.pallas_swar import swar_params
+    from stringsext_tpu.ops.swar import swar_params
     from stringsext_tpu.parallel import mesh as pmesh
 
     ms = Missions.new(flag_encoding=["UTF-8", "utf-16le", "utf-16be"])
@@ -414,8 +412,7 @@ def test_compiled_collectives_are_neighbor_ppermute_only():
         ("utf16", False, p["cp_iv_le"], p["greps"][1]),
     )
     m8 = pmesh.make_mesh(8, 1)
-    step = pmesh.build_sharded_counts(specs, m8, shard_rows=16,
-                                      interpret=True)
+    step = pmesh.build_sharded_counts(specs, m8, shard_rows=16)
     hlo = compiled_text(step, np.zeros((8 * 16, 128), np.int32))
     r = audit_hlo(hlo, 8, 1)
     assert r["ok"], r

@@ -182,7 +182,7 @@ def test_feed_end_to_end_byte_identical(tmp_path, monkeypatch, argv_extra):
     assert run(parse_args(argv), out=buf_a, engine="auto") == 0
     monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "1")
     buf_t = io.BytesIO()
-    assert run(parse_args(argv), out=buf_t, engine="tpu") == 0
+    assert run(parse_args(argv), out=buf_t, engine="device") == 0
     assert buf_t.getvalue() == buf_a.getvalue()
     assert buf_a.getvalue().count(b"\n") > 100  # real findings
 
@@ -360,7 +360,7 @@ def test_feed_lane_engages_for_iso2022():
 
 
 def test_feed_end_to_end_iso2022(tmp_path, monkeypatch):
-    """Full run() path: engine=tpu + feed == engine=auto byte-for-byte
+    """Full run() path: engine=device + feed == engine=auto byte-for-byte
     on the escape-stress corpus (exercises the feed-derived hot map +
     the mode-gated window skipper together)."""
     p = tmp_path / "iso.bin"
@@ -372,7 +372,7 @@ def test_feed_end_to_end_iso2022(tmp_path, monkeypatch):
         assert run(parse_args(argv), out=buf_a, engine="auto") == 0
         monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "1")
         buf_t = io.BytesIO()
-        assert run(parse_args(argv), out=buf_t, engine="tpu") == 0
+        assert run(parse_args(argv), out=buf_t, engine="device") == 0
         monkeypatch.delenv("STRINGSEXT_RUNTABLE_FEED")
         assert buf_t.getvalue() == buf_a.getvalue(), extra
         assert buf_a.getvalue().count(b"\n") > 100
@@ -392,7 +392,7 @@ def test_feed_extras_cover_multi_cp_big5(tmp_path, monkeypatch):
     assert run(parse_args(argv), out=buf_a, engine="auto") == 0
     monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "1")
     buf_t = io.BytesIO()
-    assert run(parse_args(argv), out=buf_t, engine="tpu") == 0
+    assert run(parse_args(argv), out=buf_t, engine="device") == 0
     assert buf_t.getvalue() == buf_a.getvalue()
     assert "Ê".encode() in buf_a.getvalue()  # the multi-cp pair decoded
 
@@ -451,14 +451,14 @@ def test_feed_streaming_byte_identical(monkeypatch, argv, chunk):
         return buf.getvalue()
 
     ref = stream("auto", False)
-    got = stream("tpu", True)
+    got = stream("device", True)
     assert got == ref
     assert ref.count(b"\n") > 100
 
 
 def test_feed_streaming_checkpoint_kill_resume(tmp_path, monkeypatch):
     """--checkpoint composes with the per-chunk feed: kill mid-stream
-    with engine=tpu + STRINGSEXT_RUNTABLE_FEED=1, resume, and the
+    with engine=device + STRINGSEXT_RUNTABLE_FEED=1, resume, and the
     assembled output equals the uninterrupted engine=auto run."""
     from stringsext_tpu.run import _run_streaming_stdin
 
@@ -494,14 +494,14 @@ def test_feed_streaming_checkpoint_kill_resume(tmp_path, monkeypatch):
             _run_streaming_stdin(
                 args, Missions.from_args(args), fo,
                 src=_Dying(blob, 5 * 8192), chunk_bytes=8192,
-                engine="tpu", checkpoint_path=ck)
+                engine="device", checkpoint_path=ck)
     assert os.path.exists(ck)
     args = parse_args(argv)
     with open(out1, "r+b") as fo:
         rc = _run_streaming_stdin(
             args, Missions.from_args(args), fo,
             src=io.BytesIO(blob), chunk_bytes=8192,
-            engine="tpu", checkpoint_path=ck)
+            engine="device", checkpoint_path=ck)
     assert rc == 0
     assert not os.path.exists(ck)  # removed on success
     assert out1.read_bytes() == expected

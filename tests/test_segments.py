@@ -1,4 +1,4 @@
-"""Segment-parallel native scanning (run.py engine=tpu): splitting the
+"""Segment-parallel native scanning (run.py engine=device): splitting the
 stream at provably-quiescent cold slices must be invisible in the
 output - byte-identical to the unsegmented scan and to the Python
 oracle, including boundary carries, precision marks and continuation
@@ -18,7 +18,7 @@ rng = np.random.default_rng(17)
 @pytest.fixture(autouse=True)
 def _hot_map_path(monkeypatch):
     """These tests target segment-parallel scanning, which requires the
-    hot-map path; the run-table feed (default-on under engine=tpu)
+    hot-map path; the run-table feed (default-on under engine=device)
     keeps feed missions unsegmented."""
     monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", "0")
 
@@ -56,8 +56,8 @@ def test_segmented_equals_unsegmented(tmp_path, monkeypatch, max_seg):
     argv = ["-t", "x", "-e", "UTF-8", "-e", "utf-16le", "-e", "utf-16be",
             str(p)]
     ref = _run(argv, "python", monkeypatch, 1)
-    un = _run(argv, "tpu", monkeypatch, 1)
-    seg = _run(argv, "tpu", monkeypatch, max_seg)
+    un = _run(argv, "device", monkeypatch, 1)
+    seg = _run(argv, "device", monkeypatch, max_seg)
     assert un == ref
     assert seg == ref
     assert ref.count(b"\n") > 1000
@@ -81,7 +81,7 @@ def test_segmented_multifile_odd_boundary(tmp_path, monkeypatch):
     b.write_bytes(bytes(blob2))
     argv = ["-t", "d", "-e", "UTF-8", "-e", "utf-16le", str(a), str(b)]
     ref = _run(argv, "python", monkeypatch, 1)
-    seg = _run(argv, "tpu", monkeypatch, 6)
+    seg = _run(argv, "device", monkeypatch, 6)
     assert seg == ref
 
 
@@ -207,9 +207,9 @@ def test_segmented_spanning_rejected_char(tmp_path, monkeypatch):
     f2.write_bytes(bytes(blob))
     argv = ["-t", "x", "-e", "UTF-8", "-e", "utf-16le", str(f1), str(f2)]
     ref = _run(argv, "python", monkeypatch, 1)
-    un = _run(argv, "tpu", monkeypatch, 1)
+    un = _run(argv, "device", monkeypatch, 1)
     for max_seg in (2, 4, 8):
-        seg = _run(argv, "tpu", monkeypatch, max_seg)
+        seg = _run(argv, "device", monkeypatch, max_seg)
         assert seg == ref, max_seg
     assert un == ref
 
@@ -250,8 +250,8 @@ def test_segmented_cjk_iso2022_equals_unsegmented(tmp_path, monkeypatch,
     argv = ["-t", "x", "-e", "Shift_JIS", "-e", "gb18030", "-e", "euc-kr",
             "-e", "ISO-2022-JP", "-n", "4", str(p)]
     ref = _run(argv, "python", monkeypatch, 1)
-    un = _run(argv, "tpu", monkeypatch, 1)
-    seg = _run(argv, "tpu", monkeypatch, max_seg)
+    un = _run(argv, "device", monkeypatch, 1)
+    seg = _run(argv, "device", monkeypatch, max_seg)
     assert un == ref
     assert seg == ref
     assert ref.count(b"\n") > 100

@@ -118,7 +118,7 @@ def test_streaming_iso2022_mode_across_chunks(tmp_path):
 
 @pytest.mark.parametrize("chunk", [8192, 65536])
 def test_streaming_tpu_engine_hot_maps(chunk, tmp_path, monkeypatch):
-    """engine=tpu streaming computes per-chunk device hot maps
+    """engine=device streaming computes per-chunk device hot maps
     (buffer-relative window skipping with carried state) - output must
     still equal the buffered scan. (Feed pinned off: this targets the
     hot-map path; the per-chunk feed has its own streaming tests.)"""
@@ -131,12 +131,12 @@ def test_streaming_tpu_engine_hot_maps(chunk, tmp_path, monkeypatch):
     ms = Missions.from_args(args)
     buf = io.BytesIO()
     _run_streaming_stdin(args, ms, buf, src=io.BytesIO(blob),
-                         chunk_bytes=chunk, engine="tpu")
+                         chunk_bytes=chunk, engine="device")
     assert buf.getvalue() == want
 
 
 def test_streaming_tpu_odd_carry_utf16_phase(tmp_path, monkeypatch):
-    """Streaming engine=tpu with a mission mix that leaves an ODD
+    """Streaming engine=device with a mission mix that leaves an ODD
     unconsumed-tail length (Shift_JIS cursor parked at a pending pair
     lead on the chunk edge) must keep the UTF-16 unit phase: the chunk
     buffer's base parity flips, and both the device hot map and the
@@ -174,7 +174,7 @@ def test_streaming_tpu_odd_carry_utf16_phase(tmp_path, monkeypatch):
     assert "Кириллица".encode() in ref  # even-offset plant found
     assert ref.count("Кириллица".encode()) == 1  # odd-offset one not
 
-    for engine in ("auto", "tpu"):
+    for engine in ("auto", "device"):
         for chunk in (4096, 8192):
             args = parse_args(argv + ["-"])
             ms = Missions.from_args(args)

@@ -1,5 +1,5 @@
-"""SWAR flagship kernel: interpret-mode equivalence with the jnp lanes
-and run-table parity from word-packed fields."""
+"""SWAR counts pass: field-word equivalence with the jnp lanes and
+run-table parity of the counts path with the jnp-lanes reference."""
 
 import numpy as np
 import pytest
@@ -8,11 +8,10 @@ import jax
 import jax.numpy as jnp
 
 from stringsext_tpu.mission import Missions
-from stringsext_tpu.ops import classify, pallas_swar
+from stringsext_tpu.ops import classify, swar
 from stringsext_tpu.ops.runs import (
     accept_mask,
     extract_runs,
-    extract_runs_packed4,
     filter_words,
 )
 
@@ -43,6 +42,38 @@ def _corpus(nwords_rows, seed=0):
     return raw
 
 
+def _field_words(raw, params):
+    """Whole-stream SWAR field words (UTF-8, UTF-16LE, UTF-16BE) of a
+    zero-context stream, one int32 word per 4 bytes."""
+    P = swar._Panel(jnp.asarray(raw.view(np.int32)).reshape(1, -1))
+    return (
+        swar.swar_utf8_panel(
+            P, params["af_iv"], params["ubf_iv"], params["greps"][0]),
+        swar.swar_utf16_panel(
+            P, params["cp_iv_le"], params["greps"][1], False),
+        swar.swar_utf16_panel(
+            P, params["cp_iv_be"], params["greps"][2], True),
+    )
+
+
+def _lanes_runs(raw, m, capacity, grep=63):
+    """Reference run table from the jnp classification lanes."""
+    from stringsext_tpu.encodings import encoding_kind
+
+    n = len(raw)
+    kind = encoding_kind(m.encoding_name)
+    if kind == "utf8":
+        lanes = classify.utf8_lanes(jnp.asarray(raw), n)
+    elif kind in ("utf16le", "utf16be"):
+        lanes = classify.utf16_lanes(jnp.asarray(raw), kind == "utf16be", n)
+    else:
+        lanes = classify.single_byte_lanes(jnp.asarray(raw), m.encoding_name,
+                                           n)
+    af_w, ubf_w = filter_words(m)
+    return extract_runs(lanes, jnp.asarray(af_w), jnp.asarray(ubf_w),
+                        jnp.int32(grep), capacity=capacity)
+
+
 def _unpack_bytes(ow, n):
     out = np.zeros(n, np.int32)
     for j in range(4):
@@ -60,15 +91,12 @@ def _unpack_units(ow, n):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_swar_fields_match_jnp(seed):
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     assert params is not None
     rows = 64
     raw = _corpus(rows, seed)
     n = len(raw)
-    words = raw.view(np.int32).reshape(rows, 128)
-    o8, ole, obe = pallas_swar.flagship_swar_lanes(
-        jnp.asarray(words), tile_rows=32, interpret=True, **params
-    )
+    o8, ole, obe = _field_words(raw, params)
     sl = slice(512, n - 512)
     for mi, ow in enumerate([o8, ole, obe]):
         ow = np.asarray(ow).reshape(-1)
@@ -98,26 +126,27 @@ def test_swar_fields_match_jnp(seed):
 
 
 def test_swar_runs_match_reference():
+    from stringsext_tpu.ops.runs import extract_runs_swar_blocks
+
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     rows = 64
     raw = _corpus(rows, 2)
-    n = len(raw)
-    words = raw.view(np.int32).reshape(rows, 128)
-    outs = pallas_swar.flagship_swar_lanes(
-        jnp.asarray(words), tile_rows=32, interpret=True, **params
+    words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
+    counts = swar.flagship_swar_counts(words, **params)
+    eps = (
+        dict(kind="utf8", af_iv=params["af_iv"], ubf_iv=params["ubf_iv"],
+             grep=params["greps"][0]),
+        dict(kind="utf16", cp_iv=params["cp_iv_le"], grep=params["greps"][1],
+             be=False),
+        dict(kind="utf16", cp_iv=params["cp_iv_be"], grep=params["greps"][2],
+             be=True),
     )
-    for mi, ow in enumerate(outs):
-        af_w, ubf_w = filter_words(ms[mi])
-        lanes = (
-            classify.utf8_lanes(jnp.asarray(raw), n)
-            if mi == 0
-            else classify.utf16_lanes(jnp.asarray(raw), mi == 2, n)
+    for mi, ep in enumerate(eps):
+        rt_ref = _lanes_runs(raw, ms[mi], 512)
+        rt_got = extract_runs_swar_blocks(
+            words, counts[2 * mi], counts[2 * mi + 1], capacity=512, **ep
         )
-        rt_ref = extract_runs(
-            lanes, jnp.asarray(af_w), jnp.asarray(ubf_w), jnp.int32(63), capacity=512
-        )
-        rt_got = extract_runs_packed4(ow, capacity=512)
         assert int(rt_ref.count) == int(rt_got.count), f"mission {mi}"
         c = int(rt_ref.count)
         for f in ("start", "end", "chars", "grep_hits"):
@@ -129,22 +158,17 @@ def test_swar_runs_match_reference():
 
 
 def test_swar_counts_path_matches_lanes_path():
-    """The fused counts kernel + raw-word slab re-derivation
+    """The fused counts pass + raw-word slab re-derivation
     (flagship_swar_counts + extract_runs_swar_blocks) must produce the
-    exact run tables of the lanes kernel + packed4 extraction."""
+    exact run tables of the jnp lanes + extract_runs."""
     from stringsext_tpu.ops.runs import extract_runs_swar_blocks
 
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     rows = 64
     raw = _corpus(rows, 7)
     words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
-    outs = pallas_swar.flagship_swar_lanes(
-        words, tile_rows=32, interpret=True, **params
-    )
-    counts = pallas_swar.flagship_swar_counts(
-        words, tile_rows=32, interpret=True, **params
-    )
+    counts = swar.flagship_swar_counts(words, **params)
     eps = (
         dict(kind="utf8", af_iv=params["af_iv"], ubf_iv=params["ubf_iv"],
              grep=params["greps"][0]),
@@ -153,8 +177,8 @@ def test_swar_counts_path_matches_lanes_path():
         dict(kind="utf16", cp_iv=params["cp_iv_be"], grep=params["greps"][2],
              be=True),
     )
-    for mi, (ow, ep) in enumerate(zip(outs, eps)):
-        ref = extract_runs_packed4(ow, capacity=512)
+    for mi, ep in enumerate(eps):
+        ref = _lanes_runs(raw, ms[mi], 512)
         got = extract_runs_swar_blocks(
             words, counts[2 * mi], counts[2 * mi + 1], capacity=512, **ep
         )
@@ -172,23 +196,18 @@ def test_swar_counts_path_matches_lanes_path():
 def test_swar_counts_path_three_level_locate():
     """Inputs over 2 MiB (nb > 4096 blocks) take the THREE-level rank
     lookup in _runs_from_block_counts; run tables must still match the
-    lanes + packed4 reference exactly (capacity overflow included -
+    jnp-lanes reference exactly (capacity overflow included -
     random bytes are dense in valid UTF-16, so both paths truncate at
     the same first-capacity runs)."""
     from stringsext_tpu.ops.runs import extract_runs_swar_blocks
 
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     rows = 6144  # 3 MiB: nsb = 96 > _SB
     raw = _corpus(rows, 11)
     raw[1 << 20 :] = 0  # sparse upper 2 MiB: runs end below capacity
     words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
-    outs = pallas_swar.flagship_swar_lanes(
-        words, tile_rows=512, interpret=True, **params
-    )
-    counts = pallas_swar.flagship_swar_counts(
-        words, tile_rows=512, interpret=True, **params
-    )
+    counts = swar.flagship_swar_counts(words, **params)
     eps = (
         dict(kind="utf8", af_iv=params["af_iv"], ubf_iv=params["ubf_iv"],
              grep=params["greps"][0]),
@@ -198,8 +217,8 @@ def test_swar_counts_path_three_level_locate():
              be=True),
     )
     for cap in (1024, 4096):
-        for mi, (ow, ep) in enumerate(zip(outs, eps)):
-            ref = extract_runs_packed4(ow, capacity=cap)
+        for mi, ep in enumerate(eps):
+            ref = _lanes_runs(raw, ms[mi], cap)
             got = extract_runs_swar_blocks(
                 words, counts[2 * mi], counts[2 * mi + 1], capacity=cap, **ep
             )
@@ -213,9 +232,9 @@ def test_swar_counts_path_three_level_locate():
                     f"cap {cap} m{mi} {f}",
                 )
 
-    # Independent oracle at this size: extract_runs goes through
-    # _compact_runs (its own searchsorted locate), NOT the hierarchical
-    # _runs_from_block_counts shared by packed4 and swar_blocks above.
+    # Independent oracle at this size with grep off: extract_runs goes
+    # through _compact_runs (its own searchsorted locate), NOT the
+    # hierarchical _runs_from_block_counts of swar_blocks above.
     af_w, ubf_w = filter_words(ms[0])
     lanes = classify.utf8_lanes(jnp.asarray(raw), len(raw))
     ind = extract_runs(
@@ -237,19 +256,16 @@ def test_swar_counts_path_three_level_locate():
 
 def test_swar_counts_mission_subsets():
     """swar_counts accepts arbitrary mission subsets (the generalized
-    spec form used by the engine=tpu hot-block path) and must produce
-    the same run tables as the flagship lanes path for each mission."""
-    from stringsext_tpu.ops.pallas_swar import swar_counts, swar_mission_spec
+    spec form used by the engine=device hot-block path) and must produce
+    the same run tables as the jnp lanes for each mission."""
+    from stringsext_tpu.ops.swar import swar_counts, swar_mission_spec
     from stringsext_tpu.ops.runs import extract_runs_swar_blocks
 
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     rows = 64
     raw = _corpus(rows, 11)
     words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
-    outs = pallas_swar.flagship_swar_lanes(
-        words, tile_rows=32, interpret=True, **params
-    )
     specs = [swar_mission_spec(m) for m in ms.v]
     assert all(sp is not None for sp in specs)
     eps = (
@@ -260,13 +276,10 @@ def test_swar_counts_mission_subsets():
     )
     # subsets: single utf8, single utf16be, utf8+utf16le pair
     for subset in ([0], [2], [0, 1]):
-        counts = swar_counts(
-            words, tuple(specs[i] for i in subset), tile_rows=32,
-            interpret=True,
-        )
-        assert counts.shape[0] == 8
+        counts = swar_counts(words, tuple(specs[i] for i in subset))
+        assert counts.shape == (2 * len(subset), rows)
         for j, mi in enumerate(subset):
-            ref = extract_runs_packed4(outs[mi], capacity=512)
+            ref = _lanes_runs(raw, ms[mi], 512)
             got = extract_runs_swar_blocks(
                 words, counts[2 * j], counts[2 * j + 1], capacity=512,
                 **eps[mi],
@@ -285,7 +298,7 @@ def test_swar_sbyte_spec_matches_jnp_lanes():
     """Single-byte-encoding specs ("sbyte"): counts kernel + slab
     re-derivation must match the jnp single_byte_lanes + extract_runs
     reference run tables."""
-    from stringsext_tpu.ops.pallas_swar import swar_counts, swar_mission_spec
+    from stringsext_tpu.ops.swar import swar_counts, swar_mission_spec
     from stringsext_tpu.ops.runs import extract_runs_swar_blocks
 
     ms = Missions.new(
@@ -303,7 +316,7 @@ def test_swar_sbyte_spec_matches_jnp_lanes():
 
     specs = tuple(swar_mission_spec(m) for m in ms.v)
     assert all(sp is not None and sp[0] == "sbyte" for sp in specs)
-    counts = swar_counts(words, specs, tile_rows=8, interpret=True)
+    counts = swar_counts(words, specs)
     for j, m in enumerate(ms.v):
         af_w, ubf_w = filter_words(m)
         lanes = classify.single_byte_lanes(
@@ -329,14 +342,14 @@ def test_swar_sbyte_spec_matches_jnp_lanes():
 
 
 def test_interval_decomposition():
-    from stringsext_tpu.ops.pallas_swar import decompose_intervals
+    from stringsext_tpu.ops.swar import decompose_intervals
 
     assert decompose_intervals(0b0, 8) == []
     assert decompose_intervals(0b1, 8) == [(0, 0)]
     assert decompose_intervals(0b0111_0110, 8) == [(1, 2), (4, 6)]
     # AF default = all minus ctrl: bytes 0x20..0x7E
     ms = _missions(grep=None)
-    af_iv, ubf_iv = pallas_swar.utf8_lead_intervals(ms[0])
+    af_iv, ubf_iv = swar.utf8_lead_intervals(ms[0])
     assert af_iv == ((0x20, 0x7E),)
     assert ubf_iv == ((0xC2, 0xDF),)  # UBF Common
 
@@ -351,7 +364,7 @@ def test_utf16_surrogate_covering_interval_rejects_pairs():
     import jax.numpy as jnp
 
     from stringsext_tpu.mission import Missions
-    from stringsext_tpu.ops.pallas_swar import swar_counts, swar_mission_spec
+    from stringsext_tpu.ops.swar import swar_counts, swar_mission_spec
 
     ms = Missions.new(
         flag_encoding=["utf-16le"], flag_unicode_block_filter="Asian"
@@ -364,7 +377,7 @@ def test_utf16_surrogate_covering_interval_rejects_pairs():
     buf = np.zeros(4096, np.uint8)
     buf[: len(text)] = np.frombuffer(text, np.uint8)
     w = jnp.asarray(buf.view(np.int32).reshape(8, 128))
-    counts = np.asarray(swar_counts(w, (spec,), tile_rows=8, interpret=True))
+    counts = np.asarray(swar_counts(w, (spec,)))
     accepts = (counts[0] >> 20) & 0x3FF
     assert accepts.sum() == 0, accepts
 
@@ -373,7 +386,7 @@ def test_utf16_surrogate_covering_interval_rejects_pairs():
     buf2 = np.zeros(4096, np.uint8)
     buf2[: len(text2)] = np.frombuffer(text2, np.uint8)
     w2 = jnp.asarray(buf2.view(np.int32).reshape(8, 128))
-    c2 = np.asarray(swar_counts(w2, (spec,), tile_rows=8, interpret=True))
+    c2 = np.asarray(swar_counts(w2, (spec,)))
     assert ((c2[0] >> 20) & 0x3FF).sum() == len(text2) // 2
 
 
@@ -388,7 +401,7 @@ def test_unpadded_edge_runs_exact():
 
     from stringsext_tpu.mission import Missions
     from stringsext_tpu.ops.classify import utf8_lanes
-    from stringsext_tpu.ops.pallas_swar import flagship_swar_counts, swar_params
+    from stringsext_tpu.ops.swar import flagship_swar_counts, swar_params
     from stringsext_tpu.ops.runs import (
         extract_runs,
         extract_runs_swar_blocks,
@@ -402,7 +415,7 @@ def test_unpadded_edge_runs_exact():
     data[30000] = 0x00  # one run break
     w = jnp.asarray(data.view(np.int32).reshape(-1, 128))
 
-    counts = flagship_swar_counts(w, tile_rows=128, interpret=True, **p)
+    counts = flagship_swar_counts(w, **p)
     rt = extract_runs_swar_blocks(
         w, counts[0], counts[1], capacity=16,
         kind="utf8", af_iv=p["af_iv"], ubf_iv=p["ubf_iv"],
@@ -426,18 +439,16 @@ def test_swar_counts_in_kernel_xor():
     from stringsext_tpu.ops.runs import extract_runs_swar_blocks
 
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
+    params = swar.swar_params(ms.v)
     rows = 32
     raw = _corpus(rows, 11)
     x = np.int32(0x01010101)
     words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
     words_x = jnp.asarray((raw ^ 1).view(np.int32).reshape(rows, 128))
 
-    c_ref = np.asarray(pallas_swar.flagship_swar_counts(
-        words_x, tile_rows=16, interpret=True, **params
-    ))
-    c_got = np.asarray(pallas_swar.flagship_swar_counts(
-        words, tile_rows=16, interpret=True, xor_word=x, **params
+    c_ref = np.asarray(swar.flagship_swar_counts(words_x, **params))
+    c_got = np.asarray(swar.flagship_swar_counts(
+        words, xor_word=x, **params
     ))
     np.testing.assert_array_equal(c_ref, c_got)
 
@@ -468,10 +479,10 @@ def test_swar_counts_in_kernel_xor():
 
 
 def test_hot_only_many_utf16_missions():
-    """hot_only fuses up to 8 missions of ANY kind - more than 4 UTF-16
+    """hot_only fuses missions of ANY kind - more than 4 UTF-16
     missions must not hit the claim-shift pair-bit budget (regression:
     an assert rejected >4 UTF-16 missions per group)."""
-    from stringsext_tpu.ops.pallas_swar import (
+    from stringsext_tpu.ops.swar import (
         swar_counts,
         swar_mission_spec,
     )
@@ -486,60 +497,15 @@ def test_hot_only_many_utf16_missions():
     raw = _corpus(rows, 3)
     words = jnp.asarray(raw.view(np.int32).reshape(rows, 128))
     c_all = np.asarray(
-        swar_counts(words, specs, tile_rows=8, interpret=True, hot_only=True)
+        swar_counts(words, specs, hot_only=True)
     )
     # Each mission's accept counts must equal its solo hot_only pass.
     for mi, sp in enumerate(specs):
         c_solo = np.asarray(
-            swar_counts(words, (sp,), tile_rows=8, interpret=True,
-                        hot_only=True)
+            swar_counts(words, (sp,), hot_only=True)
         )
         np.testing.assert_array_equal(c_all[2 * mi], c_solo[0], f"m{mi}")
         np.testing.assert_array_equal(c_all[2 * mi + 1], c_solo[1])
-
-
-def test_plan_hot_launches_static_model():
-    """The static scoped-VMEM launch plan (VERDICT r3 item 3): groups
-    are chosen before compiling from calibrated per-spec weights; the
-    tile shrinks when that reduces launch count; every group fits the
-    tile-scaled budget."""
-    from stringsext_tpu.encodings import ALL_ENCODING_NAMES
-    from stringsext_tpu.mission import Missions
-    from stringsext_tpu.ops.pallas_swar import (
-        VMEM_GROUP_BUDGET,
-        cjk_hot_spec,
-        plan_hot_launches,
-        spec_vmem_weight,
-        swar_mission_spec,
-    )
-
-    # flagship trio: light - one 512-row-tile launch
-    ms3 = Missions.new(flag_encoding=["UTF-8", "utf-16le", "utf-16be"])
-    jobs3 = [(i, swar_mission_spec(m)) for i, m in enumerate(ms3.v)]
-    tile, groups = plan_hot_launches(jobs3)
-    assert tile == 512 and len(groups) == 1
-
-    # all-41 sweep: heavy - fewer launches via a smaller tile
-    names = ["ascii"] + list(ALL_ENCODING_NAMES)
-    ms = Missions.new(flag_encoding=names)
-    jobs = []
-    for i, m in enumerate(ms.v):
-        sp = swar_mission_spec(m) or cjk_hot_spec(m)
-        if sp is not None:
-            jobs.append((i, sp))
-    assert len(jobs) == 41
-    tile, groups = plan_hot_launches(jobs)
-    budget = VMEM_GROUP_BUDGET * (512 // tile)
-    assert len(groups) <= 2, (tile, [len(g) for g in groups])
-    for g in groups:
-        assert sum(spec_vmem_weight(sp) for _i, sp in g) <= budget
-    # order is preserved (results map back by job index)
-    flat = [i for g in groups for i, _sp in g]
-    assert flat == [i for i, _sp in jobs]
-
-    # the count cap still applies on top
-    tile_c, groups_c = plan_hot_launches(jobs, max_count=8)
-    assert all(len(g) <= 8 for g in groups_c)
 
 
 def test_swar_fields_exhaustive_pairs_and_boundaries():
@@ -562,10 +528,8 @@ def test_swar_fields_exhaustive_pairs_and_boundaries():
     rows = len(raw) // 512
     n = len(raw)
     ms = _missions()
-    params = pallas_swar.swar_params(ms.v)
-    o8, ole, obe = pallas_swar.flagship_swar_lanes(
-        jnp.asarray(raw.view(np.int32).reshape(rows, 128)),
-        tile_rows=rows, interpret=True, **params)
+    params = swar.swar_params(ms.v)
+    o8, ole, obe = _field_words(raw, params)
     sl = slice(4, n - 4)
     for mi, ow in enumerate([o8, ole, obe]):
         ow = np.asarray(ow).reshape(-1)
@@ -594,7 +558,7 @@ def test_range_mask_exhaustive_all_bytes():
     lo=0, generic) verified for every byte value 0..255 against a
     direct oracle, over a corpus containing all byte values in all
     four word slots."""
-    from stringsext_tpu.ops.pallas_swar import M01, _range_mask
+    from stringsext_tpu.ops.swar import M01, _range_mask
 
     raw = np.arange(1024, dtype=np.uint8)  # every value in every slot
     for i in range(4):

@@ -409,3 +409,36 @@ def test_jis0212_glibc_arbitration_pinned():
     assert e["pointer"] == 116 and e["table"] == 0x7E
     assert e["glibc"] == 0xFF5E and e["why"]
     assert int(whatwg.jis0212_cp()[0xA2, 0xB7]) == 0x7E
+
+
+def test_tables_load_thread_safe():
+    """The per-mission scan threads look tables up concurrently on
+    first use: the tables are read eagerly (a shared lazy NpzFile
+    handle corrupted concurrent reads), and concurrent first lookups
+    all see the same tables."""
+    import threading
+
+    whatwg._data.cache_clear()
+    whatwg.single_byte.cache_clear()
+    names = ["KOI8-R", "windows-1252", "IBM866", "ISO-8859-7",
+             "macintosh", "x-mac-cyrillic", "windows-874", "ISO-8859-2"]
+    errors, got = [], {}
+
+    def lookup(name):
+        try:
+            got[name] = whatwg.single_byte(name).copy()
+            whatwg.pair_cp("big5")
+        except Exception as e:  # pragma: no cover - the regression
+            errors.append(e)
+
+    threads = [threading.Thread(target=lookup, args=(n,))
+               for n in names * 4]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert isinstance(whatwg._data(), dict)
+    whatwg.single_byte.cache_clear()
+    for n in names:
+        np.testing.assert_array_equal(got[n], whatwg.single_byte(n))
