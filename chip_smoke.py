@@ -142,13 +142,18 @@ def _cli(argv, out_path, env_extra=None, timeout=900):
 
 
 def _profile(err: str) -> dict:
-    """{scope name: calls} from the STRINGSEXT_PROFILE report."""
+    """{scope name: [seconds, calls]} from the STRINGSEXT_PROFILE
+    report."""
     out = {}
     for ln in err.splitlines():
-        m = re.match(r"^(\S+)\s+[0-9.]+s\s+x(\d+)", ln)
+        m = re.match(r"^(\S+)\s+([0-9.]+)s\s+x(\d+)", ln)
         if m:
-            out[m.group(1)] = int(m.group(2))
+            out[m.group(1)] = [float(m.group(2)), int(m.group(3))]
     return out
+
+
+def _calls(prof: dict, scope: str) -> int:
+    return prof.get(scope, [0.0, 0])[1]
 
 
 def _digest(path: str):
@@ -159,19 +164,23 @@ def _digest(path: str):
     return h.hexdigest(), os.path.getsize(path)
 
 
-def _device_vs_host(name, argv, work, env_extra=None):
+def _device_vs_host(name, argv, work, env_extra=None, feed=True):
     """The device engine (engine=auto, which must promote itself) and
     the host engine on the same input: byte-identical stdout and a
-    device dispatch in the profile. Returns the device run's stderr."""
+    device dispatch in the profile - a run-table feed too, unless
+    `feed` is False. Returns the device run's output digest."""
     dev_out = os.path.join(work, f"{name}.device.out")
     host_out = os.path.join(work, f"{name}.host.out")
     err, t_dev = _cli(argv, dev_out, env_extra)
     prof = _profile(err)
-    print(f"{name}: device engine wall {t_dev:.3f} s, profile {prof}")
-    if prof.get("device.dispatch", 0) <= 0:
+    print(f"{name}: device engine wall {t_dev:.3f} s, profile "
+          f"{{scope: [s, calls]}} {prof}")
+    if _calls(prof, "device.dispatch") <= 0:
         raise RuntimeError(
             f"{name}: no device.dispatch in the profile - the device "
             f"engine did not run:\n{err[-3000:]}")
+    if feed and _calls(prof, "device.feed") <= 0:
+        raise RuntimeError(f"{name}: the run-table feed did not run")
     _, t_host = _cli(argv, host_out,
                      dict(env_extra or {}, STRINGSEXT_DEVICE_PROBE="0"))
     print(f"{name}: host engine wall {t_host:.3f} s")
@@ -183,7 +192,7 @@ def _device_vs_host(name, argv, work, env_extra=None):
         raise RuntimeError(f"{name}: suspiciously small output {d_dev[1]}")
     print(f"{name}: output identical to the host engine "
           f"({d_dev[1]} bytes, sha256 {d_dev[0][:16]})")
-    return err
+    return d_dev
 
 
 def _write_image(path, size, seed, **kw):
@@ -420,7 +429,18 @@ def phase_kernel(work):
 def phase_buffered(work):
     path = os.path.join(work, "buffered.img")
     _write_image(path, BUFFERED_SIZE, seed=1)
-    _device_vs_host("buffered", FLAGSHIP_ARGS + [path], work)
+    want = _device_vs_host("buffered", FLAGSHIP_ARGS + [path], work)
+    # The same image on the device engine's other path: the run-table
+    # feed off, counts-pass hot maps only.
+    out = os.path.join(work, "buffered.hotmap.out")
+    err, dt = _cli(FLAGSHIP_ARGS + [path], out,
+                   {"STRINGSEXT_RUNTABLE_FEED": "0"})
+    prof = _profile(err)
+    print(f"buffered: device engine, feed off, wall {dt:.3f} s, "
+          f"profile {prof}")
+    if _calls(prof, "device.dispatch") <= 0 or _digest(out) != want:
+        raise RuntimeError("buffered: the feed-off device run differs")
+    os.remove(out)
 
 
 def phase_streamed(work):
@@ -466,7 +486,7 @@ def phase_oracle(work):
     dev_out = os.path.join(work, "oracle.device.out")
     py_out = os.path.join(work, "oracle.python.out")
     err, t_dev = _cli(ORACLE_ARGS + ["--engine", "device", path], dev_out)
-    if _profile(err).get("device.dispatch", 0) <= 0:
+    if _calls(_profile(err), "device.dispatch") <= 0:
         raise RuntimeError("oracle: device engine did not dispatch")
     _, t_py = _cli(ORACLE_ARGS + ["--engine", "python", path], py_out,
                    timeout=600)
@@ -484,7 +504,7 @@ def phase_cache(work):
     out = os.path.join(work, "cache.device.out")
     err, dt = _cli(FLAGSHIP_ARGS + [path], out,
                    {"JAX_LOG_COMPILES": "1"})
-    if _profile(err).get("device.dispatch", 0) <= 0:
+    if _calls(_profile(err), "device.dispatch") <= 0:
         raise RuntimeError("cache: device engine did not dispatch")
     slow = []
     compiles = 0
@@ -506,9 +526,10 @@ def phase_cache(work):
 
 
 def phase_four_chips(work):
-    """The mesh path: the CLI with four visible cards (the counts pass
-    sharded with ppermute halos) against one visible card, then the
-    sharded scan dry run on the cards."""
+    """The mesh path: the CLI with four visible cards and --mesh (the
+    counts pass sharded with ppermute halos; the run-table feed off, so
+    the counts pass decides every hot map) against one visible card,
+    then the sharded scan dry run on the cards."""
     print(f"nvidia-smi: {_gpu_line()}")
     p = subprocess.run(["make", "-B", "native"], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
@@ -517,17 +538,21 @@ def phase_four_chips(work):
     path = os.path.join(work, "four.img")
     _write_image(path, FOUR_CHIP_SIZE, seed=5)
     argv = FLAGSHIP_ARGS + ["--engine", "device", path]
+    hot = {"STRINGSEXT_RUNTABLE_FEED": "0"}
     out4 = os.path.join(work, "four.out")
     out1 = os.path.join(work, "one.out")
-    err4, t4 = _cli(argv, out4)
-    if _profile(err4).get("device.dispatch", 0) <= 0:
+    err4, t4 = _cli(argv[:-1] + ["--mesh", path], out4, hot)
+    prof4 = _profile(err4)
+    if _calls(prof4, "device.dispatch") <= 0:
         raise RuntimeError("four cards: device engine did not dispatch")
-    _, t1 = _cli(argv, out1, {"CUDA_VISIBLE_DEVICES": "0"})
+    err1, t1 = _cli(argv, out1, dict(hot, CUDA_VISIBLE_DEVICES="0"))
     d4, d1 = _digest(out4), _digest(out1)
     if d4 != d1:
         raise RuntimeError(f"four-card output {d4} != one-card {d1}")
     print(f"four cards: mesh output identical to one card ({d4[1]} bytes;"
           f" wall 4 cards {t4:.3f} s, 1 card {t1:.3f} s)")
+    print(f"four cards: profile {prof4}")
+    print(f"one card: profile {_profile(err1)}")
     dev = _dryrun_multichip(4)
     if dev["platform"] != "gpu" or dev["count"] != 4:
         raise RuntimeError(f"dryrun_multichip ran on {dev}")

@@ -83,8 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help="at most NUM missions per fused device hot-map "
                           "launch (engine=device; default 24)")
     ext.add_argument("--mesh", dest="mesh", action="store_true",
-                     help="force mesh-sharded device passes (on by default "
-                          "when >1 accelerator device is attached)")
+                     help="shard the device counts pass over every "
+                          "attached GPU (off by default)")
     ext.add_argument("--stream-file-min", dest="stream_file_min",
                      metavar="BYTES",
                      help="stream (constant-memory) single files at least "

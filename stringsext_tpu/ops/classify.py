@@ -211,11 +211,18 @@ def utf16_lanes(b: jax.Array, big_endian: bool, n: jax.Array | None = None) -> L
 @functools.partial(jax.jit, static_argnames=("encoding_name",))
 def single_byte_lanes(b: jax.Array, encoding_name: str, n: jax.Array | None = None) -> Lanes:
     """Single-byte encodings: a 256-entry table gather."""
+    return table_lanes(b, jnp.asarray(full_byte_table(encoding_name)), n)
+
+
+def table_lanes(b: jax.Array, table: jax.Array,
+                n: jax.Array | None = None) -> Lanes:
+    """single_byte_lanes with the decode table (int32[256], -1 for
+    undefined bytes) as an argument, so one compiled program serves
+    every single-byte encoding."""
     cap = b.shape[0]
     if n is None:
         n = cap
     n = jnp.asarray(n, jnp.int32)
-    table = jnp.asarray(full_byte_table(encoding_name))
     cp = jnp.take(table, b.astype(jnp.int32))
     idx = jnp.arange(cap, dtype=jnp.int32)
     in_n = idx < n

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..encodings import (
@@ -21,6 +23,7 @@ from ..encodings import (
     KIND_UTF16LE,
     KIND_UTF8,
     encoding_kind,
+    full_byte_table,
 )
 from ..engine.events import Events, generate_events
 from . import classify
@@ -66,8 +69,6 @@ def _compact_fn():
     feed's compaction ON DEVICE so ~n/8 + 4*chars bytes - not the full
     per-byte lanes (~9 B per input byte) - cross the device->host
     link."""
-    import jax
-    import jax.numpy as jnp
 
     @jax.jit
     def compact(mask, length, cp):
@@ -110,8 +111,6 @@ def compute_lanes(data: np.ndarray, encoding_name: str):
     power-of-two bucket so each (kind, bucket) compiles once. Returns
     lanes whose arrays are bucket-sized; positions >= len(data) are
     inert. Returns None for encodings without a device kernel."""
-    import jax.numpy as jnp
-
     kind = encoding_kind(encoding_name)
     n = len(data)
     cap = _bucket(n)
@@ -274,7 +273,8 @@ def runtable_feed(data: np.ndarray, mission, device: bool = True,
     """EXACT accepted-char run tables + decoded UTF-8 payload for one
     mission - the device run-table feed of KERNELS.md design 1 (the
     on-device analog of the reference's decode loop,
-    finding_collection.rs:84-342), enabled by STRINGSEXT_RUNTABLE_FEED=1.
+    finding_collection.rs:84-342), on by default under engine=device
+    (STRINGSEXT_RUNTABLE_FEED=0 turns it off).
 
     Covers EVERY kind: UTF-8 / UTF-16LE/BE / single-byte / Big5 /
     EUC-JP / EUC-KR / GBK / gb18030 / Shift_JIS / modal ISO-2022-JP
@@ -308,87 +308,151 @@ def runtable_feed(data: np.ndarray, mission, device: bool = True,
 
     from ..utils import profiling
 
-    with profiling.scope("device.dispatch", n):
+    with profiling.scope("device.dispatch", n), \
+            profiling.scope("device.feed", n):
         return _runtable_feed_device(data, mission, kind, with_extras)
 
 
-def _runtable_feed_device(data, mission, kind, with_extras):
-    """The device half of runtable_feed (same contract)."""
-    import jax
-    import jax.numpy as jnp
+# The feed classifies the buffer in windows that each own at most
+# _FEED_PIECE bytes, so device memory stays bounded at any input size
+# (one 768 MiB buffer classified whole ran an 80 GB card out of
+# memory). A window holds _FEED_LEFT bytes of left context (zeros
+# before the stream start), its owned piece, and lookahead up to
+# _FEED_MARGIN bytes in all. Classification of an owned byte needs at
+# most 4 bytes of context on either side (parallel/mesh.py's halo
+# rule); the decoder state that is not local - the event-chain entry
+# offset of the CJK kinds, the ISO-2022-JP mode and redundant-escape
+# flag, and the running maximum of event reports - is carried from
+# window to window.
+_FEED_PIECE = 32 << 20
+_FEED_LEFT = 4
+_FEED_MARGIN = 512  # left context + lookahead; keeps windows 512-aligned
+_NO_REPORT = -(1 << 30)
 
-    from .runs import accept_mask, filter_words
 
-    n = len(data)
-    cap = _bucket(n)
-    padded = np.zeros(cap, dtype=np.uint8)
-    padded[:n] = data
-    b = jnp.asarray(padded)
-    multi = None
-    state_hot = None
+@functools.partial(jax.jit, static_argnames=("kind", "with_extras"))
+def _feed_window(b, n, hi, carry, af_w, ubf_w, table, *, kind,
+                 with_extras):
+    """Device half of one feed window. `b` holds the window's bytes
+    (real length `n`); positions [_FEED_LEFT, hi) are owned. `carry` is
+    int32[4]: the event-chain entry offset past _FEED_LEFT, the
+    ISO-2022-JP (mode, flag) entry state, and the largest event report
+    before the first owned byte (window-relative). `table` is the
+    single-byte decode table (unused by the other kinds). Returns the
+    owned feedable chars and extras as _compact_fn results, and the
+    carry of the next window (whose first owned byte is `hi`)."""
+    from .classify_cjk import _orbit_mask, cjk_pre_lanes
+    from .classify_iso2022 import iso_pre_lanes, iso_state_transfer
+    from .runs import accept_mask
+
+    L = _FEED_LEFT
+    entry_d, mode, flag, rep_in = carry[0], carry[1], carry[2], carry[3]
+    idx = jnp.arange(b.shape[0], dtype=jnp.int32)
+    own = (idx >= L) & (idx < hi)
+    step = state_hot = None
     if kind == KIND_UTF8:
         lanes = classify.utf8_lanes(b, n)
     elif kind in (KIND_UTF16LE, KIND_UTF16BE):
         lanes = classify.utf16_lanes(b, kind == KIND_UTF16BE, n)
     elif kind == KIND_SINGLE_BYTE:
-        lanes = classify.single_byte_lanes(b, mission.encoding_name, n)
+        lanes = classify.table_lanes(b, table, n)
     elif kind == "iso-2022-jp":
-        from .classify_iso2022 import iso2022_lanes
-
-        lanes, state_hot = iso2022_lanes(b, n)
+        lanes, step, state_hot = iso_pre_lanes(b, n, mode, flag, L)
+        t = iso_state_transfer(b, n, L, hi)
+        mode = jnp.where(t[0] >= 0, t[0], mode)
+        flag = jnp.where(t[1] >= 0, t[1], flag)
     else:
-        from .classify_cjk import cjk_lanes
+        lanes, step = cjk_pre_lanes(b, kind, n)
+    multi = None
+    if step is not None:
+        # The event chain from the carried entry; the next window enters
+        # where the last chain step before `hi` lands.
+        orbit = _orbit_mask(step, n, L + entry_d)
+        lanes = lanes._replace(start=lanes.start & orbit,
+                               valid=lanes.valid & orbit,
+                               pending=lanes.pending & orbit)
+        last = jnp.max(jnp.where(orbit & (idx < hi), idx, -1))
+        land = last + jnp.take(step, jnp.maximum(last, 0))
+        entry_d = jnp.clip(land - hi, 0, 3)
+        if kind != "iso-2022-jp":
+            multi = lanes.valid & (lanes.cp < 0) & own  # multi-cp pairs
 
-        lanes, multi = cjk_lanes(b, kind, n)
-
-    af_w, ubf_w = filter_words(mission)
-    acc = accept_mask(lanes, jnp.asarray(af_w), jnp.asarray(ubf_w))
+    acc = accept_mask(lanes, af_w, ubf_w) & own
     # Effective report = running max over event reports (the emitter's
     # clock; events_cjk.generate's maximum.accumulate). A char whose
     # effective report exceeds its own last byte is excluded.
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    evt = lanes.start & ~lanes.pending
-    rep = jnp.where(evt, idx + lanes.report_off, -1)
-    rep_max = jax.lax.cummax(rep)
+    evt = lanes.start & ~lanes.pending & (idx >= L)
+    rep = jnp.where(evt, idx + lanes.report_off, _NO_REPORT)
+    rep_max = jnp.maximum(jax.lax.cummax(rep), rep_in)
     feedable = acc & (rep_max == idx + lanes.length - 1)
+    rep_out = jnp.max(jnp.where(idx < hi, rep_max, _NO_REPORT))
+    rep_out = jnp.maximum(rep_out - (hi - L), _NO_REPORT)
+    carry = jnp.stack([entry_d, mode, flag, rep_out]).astype(jnp.int32)
 
-    if cap >= 2**31:
-        # int32 device-position overflow guard (>=2 GiB buffered
-        # buffer): host-side compaction of the full lanes.
-        feedable_np = np.asarray(feedable)[:n]
-        cpos = np.flatnonzero(feedable_np)
-        length_np = np.asarray(lanes.length)[:n]
-        clen = length_np[cpos]
-        ccp = np.asarray(lanes.cp)[:n][cpos]
-    else:
-        # Device compaction: only a position bitmask (n/8 bytes) + the
-        # accepted chars' packed (cp, len) words cross the device->host
-        # link (the full per-byte lanes stay in HBM).
-        compact = _compact_fn()
-        cnt, dbits, dpk = compact(feedable, lanes.length, lanes.cp)
-        cpos, clen, ccp = _fetch_compact(cnt, dbits, dpk)
-    ft = _assemble_feed(cpos, clen, ccp, kind == KIND_UTF8)
+    compact = _compact_fn()
+    chars = compact(feedable, lanes.length, lanes.cp)
     if not with_extras:
-        return ft
-    if ft is None:
-        return None
+        return chars, None, carry
     ev_extra = acc & ~feedable
     if multi is not None:
         ev_extra = ev_extra | multi
     ex_mask = ev_extra
     if state_hot is not None:
-        ex_mask = ex_mask | state_hot
-    if cap >= 2**31:
-        ex = np.flatnonzero(np.asarray(ex_mask)[:n])
-        # Event-start extras carry their event length; state-hot-only
-        # positions (mode/phase-dependent bytes, not starts) count 1.
-        ex_len = np.where(np.asarray(ev_extra)[:n][ex],
-                          np.maximum(length_np[ex], 1), 1).astype(np.int64)
-        return ft, (ex.astype(np.int64), ex_len)
-    ex_len_lane = jnp.where(ev_extra, jnp.maximum(lanes.length, 1), 1)
-    cnt2, ebits, epk = _compact_fn()(ex_mask, ex_len_lane, ex_len_lane)
-    ex, ex_len, _ecp = _fetch_compact(cnt2, ebits, epk)
-    return ft, (ex, ex_len.astype(np.int64))
+        ex_mask = ex_mask | (state_hot & own)
+    # Event-start extras carry their event length; state-hot-only
+    # positions (mode/phase-dependent bytes, not starts) count 1.
+    ex_len = jnp.where(ev_extra, jnp.maximum(lanes.length, 1), 1)
+    return chars, compact(ex_mask, ex_len, ex_len), carry
+
+
+def _runtable_feed_device(data, mission, kind, with_extras):
+    """The device half of runtable_feed (same contract), window by
+    window. Each window is launched before the previous one's compacted
+    chars are fetched, so the copy back overlaps the next window."""
+    from .runs import filter_words
+
+    n = len(data)
+    piece = _FEED_PIECE
+    cap = min(_bucket(n + _FEED_MARGIN), piece + _FEED_MARGIN)
+    af_w, ubf_w = (jnp.asarray(w) for w in filter_words(mission))
+    table = jnp.asarray(full_byte_table(mission.encoding_name)
+                        if kind == KIND_SINGLE_BYTE
+                        else np.zeros(256, np.int32))
+    window = functools.partial(_feed_window, kind=kind,
+                               with_extras=with_extras)
+    carry = jnp.asarray([0, 0, -1, _NO_REPORT], jnp.int32)
+    chars, extras = [], []
+
+    def collect(w0, out):
+        pos, ln, cp = _fetch_compact(*out[0])
+        chars.append((pos + w0, ln, cp))
+        if with_extras:
+            ex, ex_len, _ = _fetch_compact(*out[1])
+            extras.append((ex + w0, ex_len.astype(np.int64)))
+
+    prev = None
+    for c0 in range(0, n, piece):
+        w0 = c0 - _FEED_LEFT
+        src0, src1 = max(w0, 0), min(n, w0 + cap)
+        buf = np.zeros(cap, np.uint8)
+        buf[src0 - w0:src1 - w0] = data[src0:src1]
+        out = window(jnp.asarray(buf), np.int32(src1 - w0),
+                     np.int32(min(c0 + piece, n) - w0), carry, af_w, ubf_w,
+                     table)
+        carry = out[2]
+        if prev is not None:
+            collect(*prev)
+        prev = (w0, out)
+    collect(*prev)
+
+    cpos, clen, ccp = (np.concatenate(p) for p in zip(*chars))
+    ft = _assemble_feed(cpos, clen, ccp, kind == KIND_UTF8)
+    if not with_extras:
+        return ft
+    if ft is None:
+        return None
+    ex, ex_len = (np.concatenate(p) for p in zip(*extras))
+    return ft, (ex, ex_len)
 
 
 def generate_events_device(data: np.ndarray, encoding_name: str) -> Events:

@@ -442,10 +442,6 @@ def scan_shard(inputs, spans, missions, sl, r0: int, r1: int,
     one native scan thread per mission. `entry_mode` seeds the
     ISO-2022-JP decoder mode (composed across earlier shards).
     Returns ([(res_columns, strbuf_bytes)] per mission, (p_lo, p_hi))."""
-    from ..run import _engine_name
-
-    engine = _engine_name(engine)
-
     from concurrent.futures import ThreadPoolExecutor
 
     from .. import native
@@ -478,7 +474,7 @@ def scan_shard(inputs, spans, missions, sl, r0: int, r1: int,
     runtable_feeds = {}
     from ..run import _feed_enabled
 
-    if engine == "device" and len(data) and _feed_enabled(len(data)):
+    if engine == "device" and len(data) and _feed_enabled():
         # Per-shard device run-table feed: the shard base is a true
         # event start for every mission (the windowed boundary search
         # guarantees it), so the chunk-feed builder applies directly
@@ -641,10 +637,6 @@ def scan_shard_checkpointed(inputs, spans, missions, sl, r0: int, r1: int,
     """scan_shard with per-chunk crash recovery (see the section
     comment above). Returns (per_mission, (p_lo, p_hi),
     chunks_skipped, chunks_total)."""
-    from ..run import _engine_name
-
-    engine = _engine_name(engine)
-
     from concurrent.futures import ThreadPoolExecutor
 
     from .. import native
@@ -1172,10 +1164,6 @@ def simulate_ranks(args, paths, nprocs: int, engine: str = "auto"):
     the per-rank shard read sizes (the O(shard) evidence - excludes
     the bounded boundary-search windows), and n_rows.
     """
-    from ..run import _engine_name
-
-    engine = _engine_name(engine)
-
     import io as _io
 
     from ..encodings import encoding_kind

@@ -87,27 +87,18 @@ _HOT_BLOCK = 512  # hot-map granularity (one SWAR compaction block)
 _WARNED: set = set()
 
 
-# Largest buffer the run-table feed classifies in one piece. The feed
-# pads the buffer to a power-of-two bucket and keeps several int32
-# lanes of it on the device at once (tens of bytes per input byte): a
-# 768 MiB buffer (1 GiB bucket) exhausted the 60 GB JAX reserves on an
-# 80 GB H100. Larger buffers keep the counts-pass hot maps; the
-# streaming path feeds 8 MiB chunks and is never capped.
-_FEED_MAX_BYTES = 256 * 1024 * 1024
-
-
-def _feed_enabled(nbytes: int = 0) -> bool:
+def _feed_enabled() -> bool:
     """Device run-table feed gate: DEFAULT ON under engine=device (the
     device-first execution model is the default, not an opt-in - the
     native emitter transparently falls back per window for
     lane-ineligible configs, and overflow/unsupported cases degrade to
-    the hot-map path) for buffers of at most _FEED_MAX_BYTES.
+    the hot-map path). The feed classifies in bounded windows
+    (ops/device_events._FEED_PIECE), so it runs at any input size.
     STRINGSEXT_RUNTABLE_FEED=0 is the escape hatch; =1 remains accepted
     from when it was the opt-in."""
     import os
 
-    return (os.environ.get("STRINGSEXT_RUNTABLE_FEED", "1") != "0"
-            and nbytes <= _FEED_MAX_BYTES)
+    return os.environ.get("STRINGSEXT_RUNTABLE_FEED", "1") != "0"
 
 
 def _warn_once(key, msg: str) -> None:
@@ -129,6 +120,7 @@ def _warn_once(key, msg: str) -> None:
 
 _PROBE_BW_MIN = 2e9  # bytes/s effective H2D+compute+fetch bandwidth
 _PROBE_LAT_MAX = 0.05  # seconds per tiny dispatch+fetch round trip
+_PROBE_ERROR_TTL = 300.0  # seconds a failed probe's host verdict is reused
 
 
 def _engine_name(engine: str) -> str:
@@ -269,6 +261,15 @@ def _measure_device_link():
         return {"error": str(e)}
 
 
+def _probe_failed(error: str) -> str:
+    """Report a failed probe on stderr; the run takes the host engine."""
+    print(f"Warning: accelerator probe failed ({error}); using the host "
+          f"engine. --engine device forces the device path, "
+          f"STRINGSEXT_DEVICE_PROBE=1 probes again now, "
+          f"STRINGSEXT_DEVICE_PROBE=0 skips the probe.", file=sys.stderr)
+    return "auto"
+
+
 def _auto_engine() -> str:
     """Resolve engine=auto: "device" when a co-located accelerator
     whose link can beat the host path is attached, "auto" (host native)
@@ -276,8 +277,10 @@ def _auto_engine() -> str:
     device with zero flags. The measurement runs at most once per
     machine (verdict cached in ~/.cache/stringsext-tpu/
     device_probe.json); STRINGSEXT_DEVICE_PROBE=0 pins the host path,
-    =1 forces a re-measure. A failed probe is reported on stderr and
-    not cached, so the next run measures again."""
+    =1 forces a re-measure. A failed probe is cached for
+    _PROBE_ERROR_TTL seconds only - so a card that keeps failing costs
+    one probe per TTL, not one per run - and every run that uses the
+    cached failure prints it again."""
     import json
     import os
     import time
@@ -290,6 +293,16 @@ def _auto_engine() -> str:
         try:
             with open(cache) as f:
                 doc = json.load(f)
+        except (OSError, ValueError):
+            doc = None
+        if isinstance(doc, dict) and "error" in doc:
+            try:
+                age = time.time() - float(doc.get("time", 0))
+            except (TypeError, ValueError):
+                age = _PROBE_ERROR_TTL
+            if 0 <= age < _PROBE_ERROR_TTL:
+                return _probe_failed(doc["error"])
+        elif isinstance(doc, dict):
             if _engine_name(doc.get("verdict", "")) != "device":
                 return "auto"
             # The cache is per-machine but jax is per-interpreter: a
@@ -302,18 +315,12 @@ def _auto_engine() -> str:
             if importlib.util.find_spec("jax") is None:
                 return "auto"
             return "device"
-        except (OSError, ValueError):
-            pass
         if not _accel_plausible():
             return "auto"
     m = _measure_device_link()
     if "error" in m:
-        print(f"Warning: accelerator probe failed ({m['error']}); using "
-              f"the host engine for this run. --engine device forces the "
-              f"device path, STRINGSEXT_DEVICE_PROBE=0 skips the probe.",
-              file=sys.stderr)
-        return "auto"
-    if "bw_bytes_s" in m:
+        doc = {"verdict": "auto", "error": m["error"]}
+    elif "bw_bytes_s" in m:
         ok = _probe_verdict(m["bw_bytes_s"], m["rt_lat_s"])
         doc = {"verdict": "device" if ok else "auto", **m}
     else:  # JAX sees no accelerator: a measured host verdict
@@ -327,6 +334,8 @@ def _auto_engine() -> str:
         os.replace(tmp, cache)
     except OSError:
         pass
+    if "error" in doc:
+        return _probe_failed(doc["error"])
     return doc["verdict"]
 
 
@@ -433,14 +442,11 @@ def _device_hot_ranges_swar(stream: LoadedStream, jobs,
     groups = _hot_groups(list(jobs))
 
     # Multi-device: shard each chunk's counts pass over the "data" mesh
-    # axis (ppermute halos; bit-exact vs the single-device pass). On
-    # by default when >1 accelerator device is attached; STRINGSEXT_MESH=1
-    # forces it (the CPU-mesh differential test uses this).
+    # axis (ppermute halos; bit-exact vs the single-device pass). Opt-in
+    # with --mesh / STRINGSEXT_MESH=1: on four H100s the CLI has so far
+    # run slower with the mesh than on one card.
     ndev = jax.device_count()
-    use_mesh = ndev > 1 and (
-        os.environ.get("STRINGSEXT_MESH") == "1"
-        or jax.default_backend() != "cpu"
-    )
+    use_mesh = ndev > 1 and os.environ.get("STRINGSEXT_MESH") == "1"
 
     def counts_fn(w2, specs_t):
         if not use_mesh:
@@ -1068,7 +1074,6 @@ def _scan_arrays(stream: LoadedStream, missions: Missions, engine: str,
     from .input import slice_table
     from .utils import profiling
 
-    engine = _engine_name(engine)
     results = [None] * len(missions.v)
     native_ok = engine != "python"
     sl = slice_table(stream) if native_ok else None
@@ -1110,34 +1115,7 @@ def _scan_arrays(stream: LoadedStream, missions: Missions, engine: str,
         if engine == "device":
             from .ops.specs import cjk_hot_spec, swar_mission_spec
 
-            swar_jobs, lanes_jobs = [], []
-            for i, m in native_jobs:
-                # Exact-count spec (UTF-8/UTF-16/single-byte), else the
-                # conservative plausible-byte spec for the stateful
-                # multi-byte encodings - CJK and modal ISO-2022-JP -
-                # (hot/cold map only; the emitter rescans hot ranges
-                # exactly and gates ISO-2022-JP skips on its mode
-                # state).
-                spec = swar_mission_spec(m) or cjk_hot_spec(m)
-                (swar_jobs if spec is not None else lanes_jobs).append(
-                    (i, m, spec)
-                )
-            if swar_jobs:
-                hot_by_mission.update(
-                    _device_hot_ranges_swar(
-                        stream, [(i, sp) for i, _m, sp in swar_jobs]
-                    )
-                )
-            for i, m, _sp in lanes_jobs:
-                hot_by_mission[i] = _device_hot_ranges(stream, m)
-                if hot_by_mission[i] is None:
-                    _warn_once(
-                        ("no-device-kernel", m.encoding_name),
-                        f"Warning: engine=device has no device kernel for "
-                        f"{m.encoding_name} (mission {m.mission_id}); "
-                        f"falling back to a full host scan for it.",
-                    )
-            if _feed_enabled(len(stream.data)):
+            if _feed_enabled():
                 # Device run-table feed (KERNELS.md design 1): EVERY
                 # kind - UTF-8/UTF-16/single-byte/CJK and modal
                 # ISO-2022-JP (device mode-prefix scan) - gets EXACT
@@ -1164,6 +1142,36 @@ def _scan_arrays(stream: LoadedStream, missions: Missions, engine: str,
                         hot_by_mission[i] = _merge_ranges(
                             hs, he, len(stream.data)
                         )
+            # Missions without a feed get counts-pass hot maps.
+            swar_jobs, lanes_jobs = [], []
+            for i, m in native_jobs:
+                if i in runtable_feeds:
+                    continue
+                # Exact-count spec (UTF-8/UTF-16/single-byte), else the
+                # conservative plausible-byte spec for the stateful
+                # multi-byte encodings - CJK and modal ISO-2022-JP -
+                # (hot/cold map only; the emitter rescans hot ranges
+                # exactly and gates ISO-2022-JP skips on its mode
+                # state).
+                spec = swar_mission_spec(m) or cjk_hot_spec(m)
+                (swar_jobs if spec is not None else lanes_jobs).append(
+                    (i, m, spec)
+                )
+            if swar_jobs:
+                hot_by_mission.update(
+                    _device_hot_ranges_swar(
+                        stream, [(i, sp) for i, _m, sp in swar_jobs]
+                    )
+                )
+            for i, m, _sp in lanes_jobs:
+                hot_by_mission[i] = _device_hot_ranges(stream, m)
+                if hot_by_mission[i] is None:
+                    _warn_once(
+                        ("no-device-kernel", m.encoding_name),
+                        f"Warning: engine=device has no device kernel for "
+                        f"{m.encoding_name} (mission {m.mission_id}); "
+                        f"falling back to a full host scan for it.",
+                    )
 
         # Segment-parallel dispatch: missions with device hot maps and a
         # re-synchronizing kind split at provably-quiescent cold slices
@@ -1582,7 +1590,6 @@ def _run_streaming_stdin(
     import os
 
     assert chunk_bytes % 4096 == 0
-    engine = _engine_name(engine)
     if src is None:
         src = sys.stdin.buffer
 

@@ -92,9 +92,8 @@ def _cli_worker_main():
             assert read < 0.75 * total, (read, total,
                                          distributed.LAST_STATS)
         if name == "sparse":
-            # engine=device (the old name of engine=device: device hot
-            # maps over each rank's shard) must produce the identical
-            # stream
+            # engine=device (device hot maps over each rank's shard)
+            # must produce the identical stream
             buf_t = io.BytesIO()
             rc = distributed.distributed_run(args, ms, buf_t,
                                              engine="device")

@@ -272,6 +272,90 @@ def test_feed_host_builder_matches_device():
         assert np.array_equal(a, b)
 
 
+def _assert_feeds_equal(dev, host):
+    for a, b in zip(dev[0] + dev[1], host[0] + host[1]):
+        if a is None or b is None:
+            assert a is None and b is None
+        else:
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("enc,text", KIND_TEXTS,
+                         ids=[f"{e}-{i}" for i, (e, _t) in
+                              enumerate(KIND_TEXTS)])
+def test_feed_windows_match_whole_buffer(enc, text, monkeypatch):
+    """The device feed classifies in bounded windows (1.5 KiB pieces
+    here, so ~40 window seams cut chars, surrogate pairs and CJK pairs at every
+    phase); the carried chain entry and report maximum make the result
+    equal to the whole-buffer host builder, extras included."""
+    from stringsext_tpu.ops import device_events
+
+    monkeypatch.setattr(device_events, "_FEED_PIECE", 1536)
+    data = np.frombuffer(_corpus(text(), n=64 * 1024), np.uint8)
+    m = Missions.from_args(parse_args(
+        ["-t", "x", "-e", enc, "-n", "4", "/dev/null"])).v[0]
+    dev = runtable_feed(data, m, device=True, with_extras=True)
+    host = runtable_feed(data, m, device=False, with_extras=True)
+    assert dev is not None and len(dev[0][0]) > 100
+    _assert_feeds_equal(dev, host)
+
+
+@pytest.mark.parametrize("argv_extra", [
+    ["-e", "UTF-8", "-e", "UTF-16LE", "-e", "UTF-16BE"],
+    ["-e", "Shift_JIS", "-e", "KOI8-R", "-e", "gb18030"],
+])
+def test_feed_windows_end_to_end(tmp_path, monkeypatch, argv_extra):
+    """A buffered input many feed windows long (64 KiB pieces here)
+    scans byte-identically to the host engine; every mission is fed,
+    so the counts pass does not run at all."""
+    from stringsext_tpu import run as R
+    from stringsext_tpu.ops import device_events
+
+    p = tmp_path / "win.bin"
+    p.write_bytes(_corpus() + _corpus(("国際化テスト " * 40).encode(
+        "shift_jis")) + _corpus(("héllo wörld " * 50).encode("utf-16-le")))
+    argv = ["-t", "x", "-n", "4"] + argv_extra + [str(p)]
+    buf_a = io.BytesIO()
+    assert run(parse_args(argv), out=buf_a, engine="auto") == 0
+    monkeypatch.setattr(device_events, "_FEED_PIECE", 64 * 1024)
+    monkeypatch.setattr(R, "_device_hot_ranges_swar",
+                        lambda *a, **k: pytest.fail("fed missions need no "
+                                                    "counts pass"))
+    buf_t = io.BytesIO()
+    assert run(parse_args(argv), out=buf_t, engine="device") == 0
+    assert buf_t.getvalue() == buf_a.getvalue()
+    assert buf_a.getvalue().count(b"\n") > 100
+
+
+@pytest.mark.parametrize("shift", [-5, -3, -2, -1, 0, 1, 2])
+def test_feed_windows_iso2022_state_across_seams(shift, monkeypatch):
+    """ISO-2022-JP escapes placed on every window seam at each phase:
+    a mode switch, a jis0208 pair and a redundant-escape error (two
+    escapes with no data between) straddle the seam, so the carried
+    mode and flag decide the next window's decode."""
+    from stringsext_tpu.ops import device_events
+
+    piece = 1536
+    monkeypatch.setattr(device_events, "_FEED_PIECE", piece)
+    r = np.random.default_rng(17 + shift)
+    n = 48 * 1024
+    data = bytearray(r.integers(0, 256, n, np.uint8).tobytes())
+    jis = "国際化".encode("iso2022_jp")[3:-3]
+    shapes = [b"\x1b$B" + jis + b"\x1b(B", b"\x1b(B\x1b(B" + b"ok text",
+              b"\x1b(J\x1b(B\x1b$B" + jis, b"plain ascii \x1b$@" + jis]
+    for k, c in enumerate(range(piece, n - 64, piece)):
+        blk = shapes[k % len(shapes)]
+        o = c - len(blk) // 2 + shift
+        data[o:o + len(blk)] = blk
+    data = np.frombuffer(bytes(data), np.uint8)
+    m = Missions.from_args(parse_args(
+        ["-t", "x", "-e", "ISO-2022-JP", "-n", "2", "/dev/null"])).v[0]
+    dev = runtable_feed(data, m, device=True, with_extras=True)
+    host = runtable_feed(data, m, device=False, with_extras=True)
+    assert dev is not None
+    _assert_feeds_equal(dev, host)
+
+
 def _iso_corpus(n=256 * 1024, seed=11):
     """Random bytes + planted ISO-2022-JP blocks (jis0208 / katakana /
     Roman segments) + escapes scattered in COLD regions: mode switches,

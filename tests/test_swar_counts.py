@@ -236,20 +236,22 @@ def test_engine_tpu_alias_runs_device_path(monkeypatch, tmp_path):
     p = tmp_path / "in.bin"
     p.write_bytes(bytes(blob))
     argv = ["-t", "x", "-e", "UTF-8", "-e", "utf-16le", str(p)]
+    from stringsext_tpu.ops import device_events
+
     seen = []
-    orig = R._device_hot_ranges_swar
+    orig = device_events._runtable_feed_device
 
     def spy(*a, **k):
         seen.append(1)
         return orig(*a, **k)
 
-    monkeypatch.setattr(R, "_device_hot_ranges_swar", spy)
+    monkeypatch.setattr(device_events, "_runtable_feed_device", spy)
     outs = {}
     for eng in ("device", "tpu", "auto"):
         buf = io.BytesIO()
         assert R.run(parse_args(argv), out=buf, engine=eng) == 0
         outs[eng] = buf.getvalue()
-    assert len(seen) == 2  # device and tpu, not the host engine
+    assert len(seen) == 4  # 2 missions, device and tpu; not the host
     assert outs["device"] == outs["tpu"] == outs["auto"]
     assert b"alias routing finding ok" in outs["auto"]
 
